@@ -1,0 +1,493 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Drives ``gnnadvisor_osdi21_tpu_torch`` (and nothing of the JAX package)
+through its main path and holds every CUDA kernel against its plain
+PyTorch version on the card:
+
+- phase 0: the card, its power limit and the toolchain;
+- phase 1: build ``csrc/*.cu`` with nvcc (into the package's ``_build/``);
+- layouts: an amazon0505-scale web graph through the auto decider, the
+  same graph with fixed tiers (diag 512, hot 512), and a 10k power-law
+  graph;
+- phase 2: each kernel against its plain version at the layouts' shapes,
+  for D in {16, 22, 5} and f32/bf16, with its time, its byte bound and
+  the time of ``torch.sparse.mm`` over the same edges;
+- phase 3: GCN 96 -> 16 -> 22 training on the auto layout: the first
+  step's loss and gradients against the plain path, launch counts, and
+  ``epoch_ms`` over timed epochs;
+- phase 4: the other wirings (fused diag+hot; diag 4096 with a residual
+  that does not cover every block) for a few steps each.
+
+Every check raises on failure, so the exit code is non-zero.  The last
+two lines are a JSON ``kernels`` record and the ``{"ok": true, ...}``
+line.  Without a CUDA card it exits 1 before printing either.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from gnnadvisor_osdi21_tpu_torch.graphs.loader import synthesize_graph
+from gnnadvisor_osdi21_tpu_torch.ops import _build, spmm_cuda
+from gnnadvisor_osdi21_tpu_torch.ops.aggregate import exact_f32_matmul
+from gnnadvisor_osdi21_tpu_torch.train import nll_loss, train_and_time
+from gnnadvisor_osdi21_tpu_torch.models.gcn import GCN
+from gnnadvisor_osdi21_tpu_torch.tuner.decider import InputProperty
+
+# H100 SXM data sheet (dense, no sparsity): memory rate and f32 rate
+# outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# kernel vs plain version on the card: both sum exact f32 products in f32,
+# in different orders; sums of up to a few hundred terms stay well inside
+ATOL, RTOL = 1e-4, 1e-5
+# first training step, kernel path vs plain path (same weights): loss and
+# gradients differ by summation order (and the rare bf16 rounding flip it
+# causes in the aggregation operand)
+STEP_RTOL = 1e-4
+REPS = 20  # CUDA-event-timed launches per median
+DIMS = (16, 22, 5)
+DTYPES = (torch.float32, torch.bfloat16)
+
+SOURCES = {
+    "slab_matmul_t": "gnnadvisor_osdi21_tpu_torch/csrc/slab_t.cu",
+    "fused_slab_matmul_t": "gnnadvisor_osdi21_tpu_torch/csrc/slab_t.cu",
+    "residual_combine_t": "gnnadvisor_osdi21_tpu_torch/csrc/residual_t.cu",
+}
+REPLACES = {
+    "slab_matmul_t": "gnnadvisor_osdi21_tpu/ops/spmm_pallas.py:469",
+    "fused_slab_matmul_t": "gnnadvisor_osdi21_tpu/ops/spmm_pallas.py:556",
+    "residual_combine_t": "gnnadvisor_osdi21_tpu/ops/spmm_pallas.py:649",
+}
+
+T0 = time.perf_counter()
+
+
+def log(msg: str) -> None:
+    print(f"[{time.perf_counter() - T0:7.1f}s] {msg}", flush=True)
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def time_ms(fn, reps: int = REPS) -> float:
+    """Median of ``reps`` single launches, each between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bit_coords(words: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Set bits of a bit-major uint16 [W16, N] array as (column j, minor n):
+    bit b of word w is column b·W16 + w."""
+    w16 = words.shape[0]
+    js, ns = [], []
+    for b in range(16):
+        w, n = np.nonzero((words >> np.uint16(b)) & np.uint16(1))
+        js.append(b * w16 + w)
+        ns.append(n)
+    return np.concatenate(js), np.concatenate(ns)
+
+
+def csr(rows: np.ndarray, cols: np.ndarray, shape) -> torch.Tensor:
+    """0/1 CSR matrix on the card (the library yardstick's operand)."""
+    idx = torch.from_numpy(np.stack([rows, cols]).astype(np.int64))
+    vals = torch.ones(idx.shape[1], dtype=torch.float32)
+    coo = torch.sparse_coo_tensor(idx, vals, shape).coalesce()
+    return coo.to_sparse_csr().cuda()
+
+
+class Record:
+    """What the ``kernels`` line reports for one kernel."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.max_abs_err = 0.0
+        self.launches = 0
+        self.ms = self.plain_ms = self.bound_ms = self.library_ms = None
+        self.bound_by = "bytes"
+
+    def as_dict(self) -> dict:
+        return {
+            "name": self.name, "route": "cuda", "source": SOURCES[self.name],
+            "replaces": REPLACES[self.name], "launches": self.launches,
+            "max_abs_err": self.max_abs_err, "ms": self.ms,
+            "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+            "bound_by": self.bound_by, "library_ms": self.library_ms,
+        }
+
+
+def bound(rec: Record, nbytes: int, adds: int) -> None:
+    """Least time: bytes over the memory rate vs f32 adds over the f32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = adds / F32_OPS_PER_S * 1e3
+    rec.bound_ms = max(t_bytes, t_ops)
+    rec.bound_by = "bytes" if t_bytes >= t_ops else "operations"
+
+
+def compare(rec: Record, label: str, kernel, plain) -> None:
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    require(got.shape == want.shape and got.dtype == torch.float32,
+            f"{label}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    err = (got - want).abs()
+    ok = bool((err <= ATOL + RTOL * want.abs()).all())
+    max_err = float(err.max()) if err.numel() else 0.0
+    rec.max_abs_err = max(rec.max_abs_err, max_err)
+    log(f"  {label}: max_abs_err {max_err:.3e} "
+        f"(tolerance {ATOL:g} + {RTOL:g}·|plain|) {'ok' if ok else 'FAIL'}")
+    require(ok, f"{label} disagrees with its plain version")
+
+
+def features(d: int, cols: int, dtype, gen: torch.Generator) -> torch.Tensor:
+    return torch.randn((d, cols), generator=gen, device="cuda").to(dtype)
+
+
+# ---------------------------------------------------------------------------
+
+
+def phase0() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    nvcc = subprocess.run(
+        [_build._nvcc(), "--version"], capture_output=True, text=True,
+        check=True,
+    ).stdout.strip().splitlines()[-1]
+    log(f"phase 0: card {smi}; {torch.cuda.get_device_name(0)} x"
+        f"{torch.cuda.device_count()}")
+    log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, numpy {np.__version__}, nvcc: {nvcc}")
+    return smi
+
+
+def phase1() -> None:
+    start = time.perf_counter()
+    path, output = _build.build()
+    _build.library()
+    log(f"phase 1: built {path.rsplit('/', 1)[-1]} in "
+        f"{time.perf_counter() - start:.1f} s")
+    for line in output.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+
+def build_layouts():
+    start = time.perf_counter()
+    g = synthesize_graph(410236, 4878874, num_features=96, num_classes=22,
+                         kind="web", seed=0)
+    head = InputProperty(g, hidden_dim=16).decider()
+    hts = head.build_tensors()
+    hg = head.hybrid_graph
+    log(f"layout amazon0505-scale (auto): {g.num_nodes} nodes, {g.nnz} edges, "
+        f"diag_b={hg.diag_b} hot_k={hg.hot_k} res_ob={hg.res_ob} "
+        f"res_tile={hg.res_tile} slots={hg.num_res_slots} "
+        f"tiles={len(hg.res_t2b)} covers_all={hg.res_covers_all} "
+        f"rows={hg.num_rows} ({time.perf_counter() - start:.1f} s)")
+    start = time.perf_counter()
+    fixed = InputProperty(g, hidden_dim=16, diag_b=512, hot_k=512).decider()
+    fts = fixed.build_tensors()
+    fg = fixed.hybrid_graph
+    log(f"layout amazon0505-scale (diag 512, hot 512): res_ob={fg.res_ob} "
+        f"res_tile={fg.res_tile} covers_all={fg.res_covers_all} "
+        f"({time.perf_counter() - start:.1f} s)")
+    start = time.perf_counter()
+    g10 = synthesize_graph(10000, 120000, num_features=96, num_classes=22,
+                           kind="powerlaw")
+    small = InputProperty(g10, hidden_dim=16).decider()
+    sts = small.build_tensors()
+    sg = small.hybrid_graph
+    log(f"layout 10k power-law (auto): diag_b={sg.diag_b} hot_k={sg.hot_k} "
+        f"res_ob={sg.res_ob} res_tile={sg.res_tile} "
+        f"covers_all={sg.res_covers_all} ({time.perf_counter() - start:.1f} s)")
+    require((hg.diag_b, hg.hot_k, hg.res_ob, hg.res_tile) == (0, 4096, 512, 256)
+            and hg.res_covers_all, "headline layout is hot-4096 + residual "
+            "(512, 256) covering every block")
+    require(sg.diag_b == 4096 and sg.hot_k == 0 and not sg.res_covers_all,
+            "10k layout is diag-4096 with a residual that leaves blocks empty")
+    return (g, head, hts), (g, fixed, fts), (g10, small, sts)
+
+
+def uncovered(hg):
+    """The headline residual stream with the tiles of odd blocks dropped:
+    a stream at the same geometry in which half the blocks have no tile."""
+    keep = (hg.res_t2b % 2) == 0
+    tiles = np.nonzero(keep)[0]
+    ob, s = hg.res_ob, hg.res_tile
+    lanes = (tiles[:, None] * ob + np.arange(ob)[None, :]).reshape(-1)
+    mask_s = np.ascontiguousarray(hg.res_mask_s[:, lanes])
+    t2b = hg.res_t2b[keep]
+    ptr = np.searchsorted(t2b, np.arange(hg.num_rows // ob + 1))
+    return mask_s, t2b, ptr.astype(np.int32), len(tiles) * s
+
+
+def phase2(layouts, recs) -> None:
+    (_, head, hts), (_, fixed, fts), (_, small, sts) = layouts
+    hg, fg, sg = head.hybrid_graph, fixed.hybrid_graph, small.hybrid_graph
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    log("phase 2: kernels against their plain versions on the card")
+
+    # --- slab_matmul_t: hot K=4096, diag B=512 and B=4096 ---------------
+    rec = recs["slab_matmul_t"]
+    cases = [("hot K=4096", hts[0].hot_bits, None, hg.hot_k),
+             ("diag B=512", fts[0].diag_bits, 512, fg.num_rows),
+             ("diag B=4096", sts[0].diag_bits, 4096, sg.num_rows)]
+    for label, bits, block, cols in cases:
+        for d in DIMS:
+            for dt in DTYPES:
+                x = features(d, cols, dt, gen)
+                compare(rec, f"slab_matmul_t {label} D={d} {dt}",
+                        lambda: spmm_cuda.slab_matmul_t(bits, x, block),
+                        lambda: spmm_cuda.slab_matmul_t_plain(bits, x, block))
+    # timed at the main path's first aggregation: hot, D=16, bf16
+    bits = hts[0].hot_bits
+    x = features(16, hg.hot_k, torch.bfloat16, gen)
+    rec.ms = time_ms(lambda: spmm_cuda.slab_matmul_t(bits, x))
+    rec.plain_ms = time_ms(lambda: spmm_cuda.slab_matmul_t_plain(bits, x))
+    j, r = bit_coords(hg.hot_bits)
+    a = csr(r, j, (hg.num_rows, hg.hot_k))
+    xr = x.float().t().contiguous()
+    rec.library_ms = time_ms(lambda: torch.sparse.mm(a, xr))
+    bound(rec, bits.numel() * 2 + x.numel() * 2 + 16 * hg.num_rows * 4,
+          len(j) * 16)
+    log(f"  slab_matmul_t hot K=4096 D=16 bf16: {rec.ms:.4f} ms, plain "
+        f"{rec.plain_ms:.4f} ms, torch.sparse.mm (f32 CSR, {len(j)} nnz) "
+        f"{rec.library_ms:.4f} ms, bound {rec.bound_ms:.4f} ms "
+        f"({rec.bound_by})")
+
+    # --- fused_slab_matmul_t at (512, 512) ------------------------------
+    rec = recs["fused_slab_matmul_t"]
+    dbits, hbits = fts[0].diag_bits, fts[0].hot_bits
+    for d in DIMS:
+        for dt in DTYPES:
+            x = features(d, fg.num_rows, dt, gen)
+            xh = features(d, fg.hot_k, dt, gen)
+            compare(rec, f"fused_slab_matmul_t (512, 512) D={d} {dt}",
+                    lambda: spmm_cuda.fused_slab_matmul_t(
+                        dbits, hbits, x, xh, 512),
+                    lambda: spmm_cuda.fused_slab_matmul_t_plain(
+                        dbits, hbits, x, xh, 512))
+    x = features(16, fg.num_rows, torch.bfloat16, gen)
+    xh = features(16, fg.hot_k, torch.bfloat16, gen)
+    rec.ms = time_ms(lambda: spmm_cuda.fused_slab_matmul_t(
+        dbits, hbits, x, xh, 512))
+    rec.plain_ms = time_ms(lambda: spmm_cuda.fused_slab_matmul_t_plain(
+        dbits, hbits, x, xh, 512))
+    jd, rd = bit_coords(fg.diag_bits)
+    jh, rh = bit_coords(fg.hot_bits)
+    a = csr(np.concatenate([rd, rh]),
+            np.concatenate([(rd // 512) * 512 + jd, fg.num_rows + jh]),
+            (fg.num_rows, fg.num_rows + fg.hot_k))
+    xr = torch.cat([x, xh], dim=1).float().t().contiguous()
+    rec.library_ms = time_ms(lambda: torch.sparse.mm(a, xr))
+    nnz = len(jd) + len(jh)
+    bound(rec, dbits.numel() * 2 + hbits.numel() * 2 + x.numel() * 2
+          + xh.numel() * 2 + 16 * fg.num_rows * 4, nnz * 16)
+    log(f"  fused_slab_matmul_t (512, 512) D=16 bf16: {rec.ms:.4f} ms, plain "
+        f"{rec.plain_ms:.4f} ms, torch.sparse.mm (f32 CSR, {nnz} nnz) "
+        f"{rec.library_ms:.4f} ms, bound {rec.bound_ms:.4f} ms")
+
+    # --- residual_combine_t at (OB 512, S 256): covering or not ---------
+    rec = recs["residual_combine_t"]
+    ht = hts[0]
+    m_pad = hg.num_res_slots
+    mask_u, t2b_u, ptr_u, m_u = uncovered(hg)
+    mask_u, t2b_u, ptr_u = (torch.from_numpy(a).cuda()
+                            for a in (mask_u, t2b_u, ptr_u))
+    st = sts[0]
+    streams = [
+        ("(512, 256) covering", ht.res_mask_s, ht.res_t2b, ht.res_block_ptr,
+         m_pad, hg.num_rows, hg.res_ob),
+        ("(512, 256) half the blocks empty", mask_u, t2b_u, ptr_u, m_u,
+         hg.num_rows, hg.res_ob),
+        (f"10k ({sg.res_ob}, {sg.res_tile}) not covering", st.res_mask_s,
+         st.res_t2b, st.res_block_ptr, sg.num_res_slots, sg.num_rows,
+         sg.res_ob),
+    ]
+    for label, mask_s, t2b, ptr, m, rows, ob in streams:
+        for d in DIMS:
+            for dt in DTYPES:
+                x = features(d, m, dt, gen)
+                compare(rec, f"residual_combine_t {label} D={d} {dt}",
+                        lambda: spmm_cuda.residual_combine_t(
+                            x, mask_s, t2b, ptr, rows, ob),
+                        lambda: spmm_cuda.residual_combine_t_plain(
+                            x, mask_s, t2b, rows, ob))
+    x = features(16, m_pad, torch.bfloat16, gen)
+    args = (ht.res_mask_s, ht.res_t2b, ht.res_block_ptr, hg.num_rows, hg.res_ob)
+    rec.ms = time_ms(lambda: spmm_cuda.residual_combine_t(x, *args))
+    rec.plain_ms = time_ms(lambda: spmm_cuda.residual_combine_t_plain(
+        x, ht.res_mask_s, ht.res_t2b, hg.num_rows, hg.res_ob))
+    s, lane = bit_coords(hg.res_mask_s)
+    tile = lane // hg.res_ob
+    a = csr(hg.res_t2b[tile].astype(np.int64) * hg.res_ob + lane % hg.res_ob,
+            tile * hg.res_tile + s, (hg.num_rows, m_pad))
+    xr = x.float().t().contiguous()
+    rec.library_ms = time_ms(lambda: torch.sparse.mm(a, xr))
+    bound(rec, ht.res_mask_s.numel() * 2 + x.numel() * 2
+          + ht.res_t2b.numel() * 4 + ht.res_block_ptr.numel() * 4
+          + 16 * hg.num_rows * 4, len(s) * 16)
+    log(f"  residual_combine_t (512, 256) D=16 bf16: {rec.ms:.4f} ms, plain "
+        f"{rec.plain_ms:.4f} ms, torch.sparse.mm (f32 CSR, {len(s)} nnz) "
+        f"{rec.library_ms:.4f} ms, bound {rec.bound_ms:.4f} ms")
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the hybrid path through the plain versions (for comparison)."""
+    saved = {n: getattr(spmm_cuda, n) for n in spmm_cuda.KERNELS}
+    plain = {
+        "slab_matmul_t": spmm_cuda.slab_matmul_t_plain,
+        "fused_slab_matmul_t": spmm_cuda.fused_slab_matmul_t_plain,
+        # the plain residual finds each block's tiles from t2b itself
+        "residual_combine_t": lambda rows_t, mask_s, t2b, _ptr, rows, ob: (
+            spmm_cuda.residual_combine_t_plain(rows_t, mask_s, t2b, rows, ob)
+        ),
+    }
+    try:
+        for n, fn in plain.items():
+            setattr(spmm_cuda, n, fn)
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(spmm_cuda, n, fn)
+
+
+def first_step(graph, prop, hts, label: str) -> None:
+    """One forward/backward on the kernels and on the plain versions, same
+    weights: loss and gradients must agree."""
+    hg = prop.hybrid_graph
+    x_t = torch.from_numpy(
+        prop.pad_features(graph.init_embedding(graph.num_features)).T.copy()
+    ).cuda()
+    y = torch.from_numpy(prop.pad_features(graph.init_labels(22))).cuda()
+    mask = torch.from_numpy(hg.row_mask).cuda()
+    net = GCN(graph.num_features, 16, 22, device="cuda")
+
+    def run():
+        net.zero_grad(set_to_none=True)
+        loss = nll_loss(net(x_t, hts), y, mask)
+        loss.backward()
+        return loss.detach(), [p.grad.detach().clone() for p in net.parameters()]
+
+    spmm_cuda.reset_launches()
+    loss_k, grads_k = run()
+    counts = dict(spmm_cuda.launches)
+    with plain_kernels():
+        loss_p, grads_p = run()
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    log(f"  {label} first step: loss {float(loss_k):.6f} (plain "
+        f"{float(loss_p):.6f}, rel {rel:.2e}); launches {counts}")
+    require(math.isfinite(float(loss_k)) and rel <= STEP_RTOL,
+            f"{label}: first-step loss disagrees with the plain path")
+    for name, gk, gp in zip(("conv1", "conv2"), grads_k, grads_p):
+        grel = float((gk - gp).abs().max() / gp.abs().max())
+        log(f"  {label} grad {name}: max rel err {grel:.2e}")
+        require(bool(torch.isfinite(gk).all()) and grel <= STEP_RTOL,
+                f"{label}: gradient {name} disagrees with the plain path")
+
+
+def train(graph, prop, hts, epochs: int, dry: int):
+    """Reset the launch counts, train, and return (result, counts)."""
+    x = prop.pad_features(graph.init_embedding(graph.num_features))
+    y = prop.pad_features(graph.init_labels(22))
+    spmm_cuda.reset_launches()
+    res = train_and_time("gcn", hts, x, y, 16, 22, num_epochs=epochs,
+                         dry_run=dry, mask=prop.hybrid_graph.row_mask)
+    counts = dict(spmm_cuda.launches)
+    losses = res["losses"]
+    require(len(losses) == epochs + dry and all(map(math.isfinite, losses)),
+            "every loss is finite")
+    require(losses[-1] < losses[0], "training lowers the loss")
+    return res, counts
+
+
+def phase3(layouts, recs) -> float:
+    g, head, hts = layouts[0]
+    log("phase 3: GCN 96 -> 16 -> 22 on the amazon0505-scale auto layout")
+    first_step(g, head, hts, "auto layout")
+    res, counts = train(g, head, hts, epochs=20, dry=5)
+    steps = 25
+    log(f"  trained {steps} steps: loss {res['losses'][0]:.5f} -> "
+        f"{res['losses'][-1]:.5f}; launches {counts}")
+    require(counts == {"slab_matmul_t": 4 * steps, "fused_slab_matmul_t": 0,
+                       "residual_combine_t": 4 * steps},
+            "hot and residual kernels launch exactly 4 times per step")
+    recs["slab_matmul_t"].launches = counts["slab_matmul_t"]
+    recs["residual_combine_t"].launches = counts["residual_combine_t"]
+    log(f"  epoch_ms {res['epoch_ms']:.4f} (20 timed epochs after 5 dry)")
+    return res["epoch_ms"]
+
+
+def phase4(layouts, recs) -> None:
+    log("phase 4: the other wirings")
+    g, fixed, fts = layouts[1]
+    first_step(g, fixed, fts, "diag 512 + hot 512")
+    _, counts = train(g, fixed, fts, epochs=3, dry=0)
+    log(f"  diag 512 + hot 512, 3 steps: launches {counts}")
+    require(counts["fused_slab_matmul_t"] == 12
+            and counts["slab_matmul_t"] == 0
+            and counts["residual_combine_t"] == (
+                12 if fixed.hybrid_graph.num_res_slots else 0),
+            "both slab tiers run as one fused launch per aggregation")
+    recs["fused_slab_matmul_t"].launches = counts["fused_slab_matmul_t"]
+    g10, small, sts = layouts[2]
+    first_step(g10, small, sts, "10k power-law")
+    _, counts = train(g10, small, sts, epochs=3, dry=0)
+    log(f"  10k power-law (diag 4096, residual not covering), 3 steps: "
+        f"launches {counts}")
+    require(counts == {"slab_matmul_t": 12, "fused_slab_matmul_t": 0,
+                       "residual_combine_t": 12},
+            "diag-4096 and residual kernels launch 4 times per step")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    smi = phase0()
+    exact_f32_matmul()
+    phase1()
+    layouts = build_layouts()
+    recs = {n: Record(n) for n in spmm_cuda.KERNELS}
+    phase2(layouts, recs)
+    epoch_ms = phase3(layouts, recs)
+    phase4(layouts, recs)
+    for rec in recs.values():
+        require(rec.launches > 0, f"{rec.name} launched on its path")
+    log(f"done: epoch_ms {epoch_ms:.4f} on {smi}")
+    print(smi)
+    print(json.dumps({"kernels": [r.as_dict() for r in recs.values()]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

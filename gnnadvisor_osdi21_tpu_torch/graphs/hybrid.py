@@ -1,0 +1,691 @@
+"""Hybrid hot/diagonal/residual graph layout (host-side NumPy).
+
+The torch port's own copy of ``gnnadvisor_osdi21_tpu/graphs/hybrid.py``
+(layout, cost model and builders) and of ``pack_slab_bits_t``
+(``ops/spmm_pallas.py``): the port imports nothing of the JAX package.
+Given the same graph and parameters, ``build_hybrid`` returns
+bit-identical slabs, masks and streams (tests/test_torch_hybrid_layout.py),
+so both packages read the same bytes:
+
+1. **Diagonal tier**: edges whose endpoints share a ``diag_b``-row block,
+   as a per-block bit slab ``diag_bits`` ([B/16, R] uint16), multiplied
+   against the block's own contiguous feature slice.
+2. **Hot tier**: the top-K in-degree destinations among off-block edges,
+   as a global bit slab ``hot_bits`` ([K/16, R]) against the gathered
+   ``x[hot_ids]`` table.
+3. **Residual tier**: one gather slot per unique (``res_ob``-row output
+   block, destination) pair and a multi-hot mask that fans the gathered
+   row out to every block row that wants it.
+
+Bit layout: column ``j`` of a slab sits in word ``j % W16`` at bit
+``j // W16``; graph rows are the minor (contiguous) axis.
+
+The cost-model constants are the JAX package's TPU fits, kept so the
+auto tier choice matches the reference decider (with its probe off).
+A fit for the H100 is ROADMAP.md item A.7.  The measured-probe autotune
+(hybrid.py:676-835 in the JAX package) times the JAX path and is not
+ported: tiers come from the model alone.
+
+GCN's multiplicative ``deg[s]·deg[d]`` weighting (dataset.py:122) folds
+into a dense pre-scale of x and post-scale of out, so no tier touches
+per-edge weights.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from gnnadvisor_osdi21_tpu_torch.graphs.loader import GraphCSR
+
+# Measured cost-model constants, refit 2026-08-19 against the TRANSPOSED
+# (v3) kernel sweep on the amazon0505-scale graph (v5e; 9-point
+# (diag_b, hot_k) grid + res_ob/res_tile grid + per-stage gather probes,
+# bench/breakdown.py + inline experiments; reproduces the measured totals
+# within ~10% and ranks the frontier correctly at the extremes).
+#
+# Structure the fit revealed: XLA OVERLAPS the slab pallas pass (compute)
+# with the residual tier's gather chain (DMA), so the pipeline cost is
+# ``max(compute, gathers)``, not their sum — the slab tiers are free until
+# their pass time exceeds the gather stream.  The gather chain itself is
+# two dependent XLA gathers with a large fixed launch/ramp cost
+# (~0.7-1.1 ms per op, partially overlapping in context).
+# Refit 2026-08-20 against the uint16 (v4) kernels (bf16 operands; diag
+# sweep 512/1024/2048 at amazon0505 scale + the 5-point residual
+# geometry grid, refit probes recorded in DESIGN.md §8):
+SLAB_A_NS = 0.44  # fixed per-output-column cost of the transposed slab pass
+SLAB_B_NS = 0.0008  # per (row, column) slab cell: VPU unpack + MXU dot
+RES_CELL_NS = 0.0013  # per (slot, out-row) combine cell (separate stream
+# pattern from the slab pass: mask tiles revisit output blocks)
+GATHER_SLOT_NS = 2.17  # stage-2 marginal: one slot gather from the compact table
+GATHER_BIG_NS = 6.8  # stage-1 marginal: one unique-dst gather from full x
+# Single-stage formulation: one gather of ALL slots from full x
+# (res_gather[res_dst] precomposed host-side).  2.1 ns/slot is the
+# EFFECTIVE in-pipeline rate (fit r5 against the 8-graph single-stage
+# A/B, DESIGN.md §10: reproduces the measured totals within ~7% mean
+# error across tables up to 1.9M rows).  As a bare op the gather engine
+# runs ~4.6 ns/row flat — measured INDEPENDENT of index structure
+# (contiguous runs of any length, sortedness, and duplication all
+# change nothing) — so the effective rate reflects overlap with the
+# combine/slab compute, not index locality.
+GATHER_SINGLE_NS = 2.1
+# In-context fixed costs of gather OPS.  The two-point marginal harness
+# shows the chained-SpMM fixed cost is small (~0.15 ms), but inside a
+# full training epoch each gather op still carries a real per-op ramp
+# (round-3 in-context fit: 0.7-1.6 ms; round-4 A/B: dropping this to
+# 0.15 ms flipped small graphs residual-heavy and regressed the Type
+# I/ppi roster rows 1.5-2x while Type II improved — the epoch context
+# pays the ramp, the chained kernel bench mostly hides it).  1.0 ms
+# keeps the small-graph tier choices of round 3 without disturbing the
+# headline pick (amazon stays diag-1024/hot-0 — verified by bench).
+RESID_FIX_NS = 1.0e6  # residual chain in-context ramp
+# Calibrated conservative: the amazon A/B says hot must NOT pay there
+# (hot-512 measured +0.074 ms net), and lowering the ramp to let ppi's
+# measured optimum (1024,512) win also un-gates (2048,2048), which
+# measures 6.97 vs 5.57 ms on ppi — the model cannot rank within the
+# hot-on family at small scale, so the ramp stays high and ppi runs
+# ~11% off its best-known manual config (RESULTS.md notes it; the
+# reference's manual mode covers exactly this).
+HOT_FIX_NS = 2.0e5  # hot-table gather op ramp (charged when hot_k > 0)
+# In-context ramp attributable to the residual chain's SECOND gather op
+# (stage 2), i.e. what collapsing to a single-stage gather saves; the
+# remainder of RESID_FIX_NS (launch of the chain itself) is paid either
+# way.  Fit r5 (DESIGN.md §10): the chained-context single-stage chain
+# carries almost no fixed cost, so most of RESID_FIX_NS is attributed to
+# the dropped op; what stays gates tiers conservatively in epoch context.
+RES_STAGE2_FIX_NS = 7.5e5
+# Epoch-context width limit for the single-stage formulation: chained
+# SpMM prefers single-stage at EVERY measured width (dim 16-96, r5
+# probe), but inside a full training epoch the wide-row full-table
+# gather stream loses its overlap and two-stage wins once
+# slots x agg_dim grows past ~10^7 cells (measured amazon0505 epochs:
+# GCN agg at 16/22 -> single 12.99 vs two 14.27 ms; GIN agg at 96/64 ->
+# single 44.6 vs two 36.5; ppi GIN at 50k slots stays single-friendly).
+# build_hybrid_tensors applies this per layer via ``agg_feature_dim``.
+RES_SINGLE_MAX_CELLS = 12_000_000
+RESID_PAD_EST = 1.15  # slots / pairs (res_tile padding) at res_ob=1024
+HBM_BYTES_PER_NS = 690.0  # measured Pallas stream rate (690 GB/s)
+# Bit slabs are stored transposed ([words, rows], spmm_pallas docstring),
+# so physical bytes == logical bytes at every width; the cap keeps auto
+# tier choices from dedicating most of HBM to adjacency bits anyway.
+SLAB_MEM_CAP_BYTES = 3 << 30  # auto tiers may not spend >3 GB on bit slabs
+
+# 8192-wide slabs exceed VMEM at practical block_rows (measured Mosaic
+# compile failures, levers sweep 2026-08-18), so auto search tops out at
+# 4096; explicit hot_k/diag_b values still pass through.
+DIAG_CANDIDATES = (0, 512, 1024, 2048, 4096)
+HOT_CANDIDATES = (0, 512, 1024, 2048, 4096)
+
+# Above this many off-diagonal edges the tier census samples whole output
+# blocks instead of sorting every edge key (choose_tiers docstring) —
+# keeps layout build O(seconds) at ogbn-products scale (~123M edges).
+CENSUS_EDGE_LIMIT = 10_000_000
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclasses.dataclass
+class HybridGraph:
+    """Three-tier layout.  Rows = original (possibly rabbit-reordered) node
+    order, zero-padded at the end to ``num_rows`` — no relabeling, so the
+    layout composes with any upstream permutation and across layers."""
+
+    num_rows: int  # multiple of max(diag_b, res_ob, 512)
+    real_nodes: int
+    degrees: np.ndarray  # [R] f32 sqrt-degrees (1.0 on pad rows)
+    row_mask: np.ndarray  # [R] f32, 1 on real rows
+    # hot tier (0 = disabled).  Bit arrays are stored TRANSPOSED
+    # ([words, rows]) so the TPU's 128-lane minor-dim padding never
+    # amplifies their physical bytes (spmm_pallas module docstring).
+    hot_k: int
+    hot_ids: np.ndarray  # [K] int32 row ids of hot destinations
+    hot_bits: np.ndarray  # [K/16, R] uint16, transposed bit-major
+    # diagonal tier (0 = disabled)
+    diag_b: int
+    diag_bits: np.ndarray  # [B/16, R] uint16, transposed, cols block-local
+    # residual tier (res_dst.size == 0 = disabled).  One slot = one unique
+    # (out-block, destination) pair; the multi-hot mask says which of the
+    # block's res_ob rows it feeds (dedup: one gather serves every edge
+    # sharing the pair).  The layout stores the TWO-STAGE chain (stage 1
+    # compacts unique destinations, stage 2 feeds slots from the table);
+    # whether the device tensors run it or precompose a single full-x
+    # gather is chosen per layer at tensor-build time (``res_single`` +
+    # the RES_SINGLE_MAX_CELLS width gate — chained kernels prefer
+    # single-stage at every measured width, epoch context flips above
+    # ~12M slots x agg_dim cells).
+    res_gather: np.ndarray  # [Ud] int32 unique destination rows (stage 1)
+    res_dst: np.ndarray  # [M_pad] int32 index into res_gather per slot
+    res_mask: np.ndarray  # [res_ob/32, M_pad] uint32 multi-hot, transposed
+    # same bits in slot-major orientation ([res_tile/16, T*res_ob] uint16,
+    # slot s in word s % S16 bit s // S16, out rows on lanes) — the layout
+    # the transposed residual kernel unpacks directly (residual_combine_t;
+    # 16-bit words double the VPU unpack throughput)
+    res_mask_s: np.ndarray  # [res_tile/16, T*res_ob] uint16
+    res_t2b: np.ndarray  # [T] int32 out-block of each tile
+    res_tile: int
+    res_ob: int
+    # stats
+    num_hot_edges: int = 0
+    num_diag_edges: int = 0
+    num_res_edges: int = 0
+    num_res_pairs: int = 0  # unique (block, dst) pairs
+    num_res_slots: int = 0  # including padding
+    # True when every res_ob block has >=1 residual tile: the kernel then
+    # writes every output row and the caller skips the visited-block
+    # select (a full [D, R] read+write pass — 1+ ms at Type II scale)
+    res_covers_all: bool = False
+    # True when the priced slot stream is short enough that ONE gather
+    # from full x (res_gather[res_dst] precomposed) beats the two-stage
+    # compact-then-feed chain: the full-table per-row premium costs less
+    # than the dropped gather op's in-context ramp (DESIGN.md §8 win
+    # condition; the small-graph regime where per-op ramps dominate)
+    res_single: bool = False
+
+    def pad_array(self, a: np.ndarray) -> np.ndarray:
+        """Node-indexed array -> kernel row space (zero-pad the tail)."""
+        a = np.asarray(a)
+        out = np.zeros((self.num_rows,) + a.shape[1:], dtype=a.dtype)
+        out[: self.real_nodes] = a
+        return out
+
+    def unpad_array(self, a: np.ndarray) -> np.ndarray:
+        return np.asarray(a)[: self.real_nodes]
+
+
+def choose_hot_k(
+    column_index: np.ndarray,
+    num_nodes: int,
+    num_edges: int,
+    max_k: int = 4096,
+    gather_ns: float = GATHER_SLOT_NS * RESID_PAD_EST,
+    slab_ns_per_col: float | None = None,
+) -> int:
+    """Hot-set size from the coverage curve + measured cost model: K slab
+    columns cost ``R·K·SLAB_B_NS`` per SpMM and save
+    ``covered · gather_ns``.  (The param.py:51 decider analog.)"""
+    if num_edges == 0 or num_nodes == 0:
+        return 0
+    per_col = (
+        slab_ns_per_col
+        if slab_ns_per_col is not None
+        else SLAB_B_NS * num_nodes
+    )
+    counts = np.bincount(column_index, minlength=num_nodes)
+    csum = np.cumsum(np.sort(counts)[::-1])
+    best_k, best_cost = 0, float(num_edges) * gather_ns
+    for k in HOT_CANDIDATES:
+        if k == 0 or k > num_nodes or k > max_k:
+            continue
+        cost = k * per_col + (num_edges - int(csum[k - 1])) * gather_ns
+        if cost < best_cost:
+            best_k, best_cost = k, cost
+    return best_k
+
+
+def choose_tiers(
+    src: np.ndarray,
+    dst: np.ndarray,
+    num_nodes: int,
+    hot_k: int | None = None,
+    diag_b: int | None = None,
+    res_ob: int = 1024,
+) -> tuple[int, int]:
+    """Model-ranked tier choice: ``rank_tiers(...)[0]`` (see there)."""
+    ranked = rank_tiers(src, dst, num_nodes, hot_k=hot_k, diag_b=diag_b,
+                        res_ob=res_ob)
+    if not ranked:
+        return (diag_b or 0, hot_k or 0)
+    return ranked[0][1], ranked[0][2]
+
+
+def rank_tiers(
+    src: np.ndarray,
+    dst: np.ndarray,
+    num_nodes: int,
+    hot_k: int | None = None,
+    diag_b: int | None = None,
+    res_ob: int = 1024,
+) -> list[tuple[float, int, int]]:
+    """Rank every feasible (diag_b, hot_k) candidate by the measured
+    pipeline cost model — ascending ``(cost_ns, diag_b, hot_k)``.
+
+    Jointly prices ``max(slab_compute, residual_gather_stream)`` where
+    ``slab = R·(SLAB_A + SLAB_B·(B+K))`` and ``gathers = RESID_FIX +
+    min(two-stage, single-stage)`` over the gather formulations.
+    The max form is measured, not assumed: XLA overlaps the slab pallas
+    pass with the residual gather chain (the gather DMAs hide the slab
+    compute entirely at tuned tiers — bench/breakdown.py, 2026-08-19).
+
+    Every feasible candidate is priced with the *exact* unique
+    (out-block, dst) pair and unique dst counts — the quantities the
+    residual kernel actually pays for.  (An earlier coarse pass with a
+    fixed dedup estimate systematically under-ranked small tiers, whose
+    residuals dedup 3-5x.)  The census costs ONE sort per diag candidate:
+    hot sets are nested along the in-degree order, so every hot_k
+    candidate reads its pair count off a cumulative sum, and the stage-1
+    unique-dst count follows from the degree histogram alone.  Above
+    ``CENSUS_EDGE_LIMIT`` edges the pair census samples a pseudo-random
+    (hash-selected) 1/stride of whole output blocks — pairs partition by
+    block, so ``stride x sampled-count`` is unbiased over the block
+    sample; below the limit the census is exact.  Fixing either
+    parameter (manual mode) restricts the search to the other; fixing
+    both passes through (param.py:58-70).
+    """
+    e = len(src)
+    if e == 0:
+        return [(0.0, diag_b or 0, hot_k or 0)]
+    if diag_b is not None and hot_k is not None:
+        return [(0.0, diag_b, hot_k)]
+    b_cands = DIAG_CANDIDATES if diag_b is None else (diag_b,)
+    cands: list[tuple[float, int, int]] = []
+    for b in b_cands:
+        # skip oversized *auto* candidates only: a manually fixed diag_b
+        # passes through (build_hybrid rounds num_rows up to it)
+        if b and b > _round_up(num_nodes, 512) and diag_b is None:
+            continue
+        if b:
+            off = src // b != dst // b
+            od, osrc = dst[off], src[off]
+        else:
+            od, osrc = dst, src
+        rows = _round_up(max(num_nodes, 1), max(b, 512))
+        # hot curve on off-diagonal edges only: hubs that are mostly local
+        # do not earn a hot column
+        counts = np.bincount(od, minlength=num_nodes)
+        order = np.argsort(counts)[::-1]
+        # --- pair census, shared by every hot_k candidate ----------------
+        blk = osrc // res_ob
+        if len(od) > CENSUS_EDGE_LIMIT:
+            stride = -(-len(od) // CENSUS_EDGE_LIMIT)
+            # pseudo-random block sample via a multiplicative hash —
+            # NOT blk % stride, which would always keep block 0 and bias
+            # toward whatever structure lives at low node ids after
+            # reordering (communities/hubs)
+            h = (blk * np.int64(2654435761)) & np.int64(0xFFFFFFFF)
+            sel = (h % stride) == 0
+            keys = blk[sel] * np.int64(num_nodes + 1) + od[sel]
+        else:
+            stride = 1
+            keys = blk * np.int64(num_nodes + 1) + od
+        ukeys = np.unique(keys)
+        pairs_per_dst = np.bincount(
+            ukeys % np.int64(num_nodes + 1), minlength=num_nodes
+        )
+        u_total = len(ukeys)
+        # making a dst hot removes ALL its pairs and its stage-1 gather row
+        cum_pairs = np.cumsum(pairs_per_dst[order])
+        nz_dst = int(np.count_nonzero(counts))
+        cum_nzdst = np.cumsum(counts[order] > 0)
+        k_cands = HOT_CANDIDATES if hot_k is None else (hot_k,)
+        for k in k_cands:
+            if k > num_nodes and k != (hot_k or 0):
+                continue
+            kk = min(k, num_nodes)
+            bits_bytes_per_row = (b + k) // 8
+            if rows * bits_bytes_per_row > SLAB_MEM_CAP_BYTES:
+                continue  # candidate would blow the HBM budget
+            # SLAB_A is charged even with both tiers off: it is the fixed
+            # per-output-column pipeline cost (block accumulate + final
+            # combine), which the fit attributes per column regardless.
+            slab = rows * (
+                SLAB_A_NS
+                + SLAB_B_NS * (b + k)
+                # streaming the bit rows from HBM each pass
+                + bits_bytes_per_row / HBM_BYTES_PER_NS
+            )
+            if len(od):
+                uniq = stride * (
+                    u_total - (int(cum_pairs[kk - 1]) if kk else 0)
+                )
+                uniq_dst = nz_dst - (int(cum_nzdst[kk - 1]) if kk else 0)
+            else:
+                uniq = uniq_dst = 0
+            slots_est = uniq * RESID_PAD_EST
+            if uniq:
+                # min over gather formulations: two-stage (compact table)
+                # vs a single gather from full x, which drops the second
+                # op's in-context ramp (measured r5: single wins on every
+                # roster graph; two-stage only pays once the slot stream
+                # far outgrows the unique-dst census — ogbn scale)
+                gathers = RESID_FIX_NS + min(
+                    GATHER_BIG_NS * uniq_dst
+                    + GATHER_SLOT_NS * slots_est
+                    + RES_STAGE2_FIX_NS,
+                    GATHER_SINGLE_NS * slots_est,
+                ) - RES_STAGE2_FIX_NS
+            else:
+                gathers = 0.0
+            if k:
+                gathers += HOT_FIX_NS  # the hot table gather is its own op
+            combine = (
+                RES_CELL_NS * res_ob * slots_est
+                + RES_TILE_STEP_NS * slots_est / 256.0
+            ) if uniq else 0.0
+            # measured structure (marginal decomposition + 3-point tier A/B,
+            # 2026-08-20): the slab pallas pass (compute) hides under the
+            # gather DMA chain, but the overlap degrades quadratically as
+            # the two streams approach parity (wide slabs leak into the
+            # critical path: headline A/B measured (1024,0)=2.12 <
+            # (1024,512)=2.19 < (2048,512)=2.50 ms, and the unit-leak
+            # coefficient is what keeps that ordering once the in-context
+            # RESID_FIX dominates the gather arm); the dependent combine
+            # kernel then runs after the chain.
+            hi, lo = max(slab, gathers), min(slab, gathers)
+            leak = (lo / hi) ** 2 if hi > 0 else 0.0
+            cost = hi * (1.0 + leak) + combine
+            cands.append((cost, b, k))
+    # every candidate hit the memory cap: tiers off
+    return sorted(cands) or [(0.0, diag_b or 0, hot_k or 0)]
+
+
+# residual-geometry candidates for the adaptive choice (choose_res_geometry)
+RES_OB_CANDIDATES = (512, 1024, 2048, 4096, 8192, 16384)
+RES_TILE_CANDIDATES = (128, 256)
+RES_TILE_STEP_NS = 179.0  # measured combine-kernel grid-step overhead (v4)
+
+
+def choose_res_geometry(
+    rs: np.ndarray, rd: np.ndarray, num_nodes: int,
+    row_align: int = 512, row_cost_ns: float = 0.0,
+) -> tuple[int, int]:
+    """Pick (res_ob, res_tile) for the residual tier from its exact pair
+    census: cost = slots·(GATHER_SLOT + SLAB_B·OB) + tiles·step_overhead,
+    where ``slots`` is the per-block padded count (bigger blocks dedup
+    more pairs AND pad fewer tiles, but the combine unpack grows with OB).
+    Input-adaptive like the slab tiers: compound collections (Type II,
+    few pairs spread over many blocks) want huge sparse blocks, web graphs
+    (dense pair streams) want 1024 (2026-08-19 grids on both).
+
+    ``row_align``/``row_cost_ns``: the chosen ob also inflates the layout's
+    padded row count (num_rows rounds up to max(diag_b, ob, align) in
+    build_hybrid) — every extra padded row pays the slab pipeline's
+    per-output-column cost, so a big ob must EARN its padding on small
+    graphs (ADVICE r3: choose_tiers and this chooser were priced against
+    inconsistent layouts)."""
+    if not len(rs):
+        return 1024, 256
+    base_rows = _round_up(max(num_nodes, 1), row_align)
+    best = None
+    for ob in RES_OB_CANDIDATES:
+        key = (rs // ob) * np.int64(num_nodes + 1) + rd
+        ukey = np.unique(key)
+        counts_b = np.bincount(ukey // (num_nodes + 1))
+        pad_rows = _round_up(max(num_nodes, 1), max(row_align, ob)) - base_rows
+        for rt in RES_TILE_CANDIDATES:
+            slots = int((-(-counts_b // rt) * rt).sum())
+            tiles = slots // rt
+            cost = (
+                slots * (GATHER_SLOT_NS + RES_CELL_NS * ob)
+                + tiles * RES_TILE_STEP_NS
+                + pad_rows * row_cost_ns
+            )
+            if best is None or cost < best[0]:
+                best = (cost, ob, rt)
+    return best[1], best[2]
+
+
+def build_hybrid(
+    graph: GraphCSR,
+    hot_k: int | None = None,
+    diag_b: int | None = None,
+    res_tile: int | None = None,
+    res_ob: int | None = None,
+    row_align: int = 512,
+) -> HybridGraph:
+    """Build the three-tier layout.  ``hot_k``/``diag_b`` default to the
+    measured-cost-model choice (``choose_tiers``); ``res_ob``/``res_tile``
+    to the residual-census choice (``choose_res_geometry``); pass explicit
+    values (including 0 to disable a tier) for manual mode / studies.
+
+    Equal to the JAX package's ``build_hybrid(..., probe=False)``.
+    """
+    n = graph.num_nodes
+    rp = np.asarray(graph.row_pointers, dtype=np.int64)
+    ci = np.asarray(graph.column_index, dtype=np.int64)
+    src = np.repeat(np.arange(n, dtype=np.int64), np.diff(rp))
+
+    # Tier choice and residual geometry feed each other (choose_tiers
+    # prices the pair census at a given res_ob; the chosen ob in turn
+    # changes which tiers pay off), so iterate to a consistent fixed
+    # point — at most two passes, since the second pass re-prices at the
+    # geometry the layout will actually be built with (ADVICE r3).
+    in_diag_b, in_hot_k = diag_b, hot_k  # user-fixed (None = auto)
+    census_ob = res_ob or 1024
+    for _ in range(2):
+        ranked = rank_tiers(
+            src, ci, n, hot_k=in_hot_k, diag_b=in_diag_b, res_ob=census_ob
+        )
+        diag_b, hot_k = (ranked[0][1], ranked[0][2]) if ranked else (
+            in_diag_b or 0, in_hot_k or 0
+        )
+        if diag_b % 512:
+            raise ValueError(f"diag_b {diag_b} must be a multiple of 512")
+
+        # --- classify edges: diag > hot > residual ----------------------
+        if diag_b:
+            in_diag = (src // diag_b) == (ci // diag_b)
+        else:
+            in_diag = np.zeros(len(src), dtype=bool)
+
+        if hot_k:
+            if hot_k % 32:
+                raise ValueError(f"hot_k {hot_k} must be a multiple of 32")
+            counts = np.bincount(ci[~in_diag], minlength=n)
+            top = np.argsort(counts)[::-1][:hot_k].astype(np.int32)
+            top = top[counts[top] > 0]  # columns with no edges stay padding
+            hot_col = np.full(n, -1, dtype=np.int64)
+            hot_col[top] = np.arange(len(top))
+            in_hot = (~in_diag) & (hot_col[ci] >= 0)
+        else:
+            top = np.zeros(0, dtype=np.int32)
+            in_hot = np.zeros(len(src), dtype=bool)
+
+        in_res = ~(in_diag | in_hot)
+
+        # --- residual geometry (input-adaptive) -------------------------
+        if res_ob is None or res_tile is None:
+            auto_ob, auto_rt = choose_res_geometry(
+                src[in_res], ci[in_res], n,
+                row_align=max(diag_b, row_align),
+                row_cost_ns=SLAB_A_NS + SLAB_B_NS * (diag_b + hot_k),
+            )
+            chosen_ob = res_ob or auto_ob
+            chosen_rt = res_tile or auto_rt
+        else:
+            chosen_ob, chosen_rt = res_ob, res_tile
+        if chosen_ob == census_ob:
+            break
+        census_ob = chosen_ob  # re-price the tiers at the real geometry
+    res_ob, res_tile = chosen_ob, chosen_rt
+    num_rows = _round_up(max(n, 1), max(diag_b, res_ob, row_align))
+
+    if hot_k:
+        # Padding columns never set a bit, so any id is *correct*; point
+        # them at a dedicated zero row (the first pad row) so they gather
+        # zeros, not K-len(top) copies of a real row — no wasted bandwidth
+        # and no footgun if hot_ids is ever used without the bit mask.
+        # (n == num_rows only when n is already tier-aligned; then there is
+        # no pad row and row 0 is the harmless fallback.)
+        pad_id = n if n < num_rows else 0
+        hot_ids = np.full(hot_k, pad_id, dtype=np.int32)
+        hot_ids[: len(top)] = top
+    else:
+        hot_ids = np.zeros(0, dtype=np.int32)
+
+    # --- bit slabs (stored transposed: [words, rows], uint16) -------------
+    if hot_k:
+        hot_bits = pack_slab_bits_t(
+            src[in_hot], hot_col[ci[in_hot]], num_rows, hot_k
+        )
+    else:
+        hot_bits = np.zeros((0, num_rows), dtype=np.uint16)
+    if diag_b:
+        diag_bits = pack_slab_bits_t(
+            src[in_diag], ci[in_diag] % diag_b, num_rows, diag_b
+        )
+    else:
+        diag_bits = np.zeros((0, num_rows), dtype=np.uint16)
+
+    # --- residual slot stream -------------------------------------------
+    # One slot per unique (out-block, destination) pair; the multi-hot
+    # mask fans one gathered row out to every block row that wants it
+    # (measured dedup ≈ 1.2-2.1x — gathers are the residual's cost).
+    rs, rd = src[in_res], ci[in_res]
+    res_gather, res_dst, res_mask, res_mask_s, res_t2b, num_res_pairs = (
+        build_residual_stream(rs, rd, n, num_rows, res_tile, res_ob)
+    )
+    # gather formulation: one full-x gather vs compact-then-feed (the
+    # RES_STAGE2_FIX_NS rationale above; priced from the exact censuses)
+    res_single = bool(len(res_dst)) and (
+        GATHER_SINGLE_NS * len(res_dst)
+        < GATHER_BIG_NS * len(res_gather)
+        + GATHER_SLOT_NS * len(res_dst)
+        + RES_STAGE2_FIX_NS
+    )
+
+    degrees = np.ones(num_rows, dtype=np.float32)
+    degrees[:n] = graph.degrees
+    row_mask = np.zeros(num_rows, dtype=np.float32)
+    row_mask[:n] = 1.0
+
+    hg = HybridGraph(
+        num_rows=num_rows,
+        real_nodes=n,
+        degrees=degrees,
+        row_mask=row_mask,
+        hot_k=hot_k,
+        hot_ids=hot_ids,
+        hot_bits=hot_bits,
+        diag_b=diag_b,
+        diag_bits=diag_bits,
+        res_gather=res_gather,
+        res_dst=res_dst,
+        res_mask=res_mask,
+        res_mask_s=res_mask_s,
+        res_t2b=res_t2b,
+        res_tile=res_tile,
+        res_ob=res_ob,
+        num_hot_edges=int(in_hot.sum()),
+        num_diag_edges=int(in_diag.sum()),
+        num_res_edges=int(in_res.sum()),
+        num_res_pairs=num_res_pairs,
+        num_res_slots=len(res_dst),
+        res_covers_all=(
+            len(np.unique(res_t2b)) == num_rows // res_ob
+        ),
+        res_single=res_single,
+    )
+    return hg
+
+
+def _round_up_arr(x: np.ndarray, m: int) -> np.ndarray:
+    return -(-x // m) * m
+
+
+def build_residual_stream(
+    rs: np.ndarray,
+    rd: np.ndarray,
+    col_space: int,
+    num_rows: int,
+    res_tile: int,
+    res_ob: int,
+    cover_all: bool = False,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]:
+    """Residual tier construction, shared with the multi-chip layout.
+
+    ``rs``: output rows in [0, num_rows); ``rd``: gather-source ids in
+    [0, col_space) — for the single-chip layout that's the same node space,
+    for the sharded layout it's the per-device gather table (local block +
+    received halo).  Returns ``(res_gather, res_dst, res_mask, res_mask_s,
+    res_t2b, num_pairs)`` — one slot per unique (out-block, source) pair,
+    multi-hot masks in BOTH bit orientations (``res_mask`` out-row-major
+    [res_ob/32, M_pad] for the row-major kernel / CPU reference;
+    ``res_mask_s`` slot-major uint16 [res_tile/16, T*res_ob] for the transposed
+    kernel), tiles grouped per out-block (see HybridGraph fields).
+    """
+    n_blocks = num_rows // res_ob
+    words = res_ob // 32
+    sw = res_tile // 16
+    if not len(rs):
+        return (
+            np.zeros(0, dtype=np.int32),
+            np.zeros(0, dtype=np.int32),
+            np.zeros((words, 0), dtype=np.uint32),
+            np.zeros((sw, 0), dtype=np.uint16),
+            np.zeros(0, dtype=np.int32),
+            0,
+        )
+    blk = rs // res_ob
+    key = blk * np.int64(col_space + 1) + rd
+    ukey, inv = np.unique(key, return_inverse=True)
+    u = len(ukey)
+    ublk = ukey // (col_space + 1)
+    udst = ukey % (col_space + 1)
+    res_gather, udst_c = np.unique(udst, return_inverse=True)
+    res_gather = res_gather.astype(np.int32)
+    off = rs - blk * res_ob
+    counts_b = np.bincount(ublk, minlength=n_blocks)
+    padded_b = _round_up_arr(counts_b, res_tile)
+    # Residual-free blocks are never visited by the combine grid, so the
+    # caller selects their rows to zero.  ``cover_all=True`` instead adds
+    # one all-zero dummy tile per empty block so the kernel writes the
+    # zeros itself — MEASURED FLAT on TPU (r5, OVCAR-8H: SpMM 3.15 vs
+    # 3.13 ms, GIN epoch 102.3 vs 100.0): XLA fuses the visited-select
+    # into the adjacent elementwise ops, so the "extra pass" it would
+    # save does not exist.  Kept as an explicit knob (default off) for
+    # hardware where the fusion does not happen.
+    if cover_all:
+        padded_b = np.maximum(padded_b, res_tile)
+    starts = np.concatenate(([0], np.cumsum(padded_b)))
+    m_pad = int(starts[-1])
+    res_dst = np.zeros(m_pad, dtype=np.int32)
+    # position of each unique slot: block start + within-block index
+    # (ukey is sorted, so slots arrive grouped by block)
+    within = np.arange(u) - np.concatenate(([0], np.cumsum(counts_b)))[ublk]
+    pos = starts[ublk] + within
+    res_dst[pos] = udst_c.astype(np.int32)
+    pu = pos[inv]  # per-edge global slot position
+    # bit-major layout (output row o -> word o % words, bit o // words),
+    # matching the slab kernels so the Pallas residual combine reuses the
+    # same repeat+shift unpack (spmm_pallas._unpack_tile).  Built directly
+    # in the transposed [words, M_pad] orientation with one per-edge OR —
+    # building row-major then transposing costs ~17 s at 12M edges (the
+    # strided 1.5 GB transpose is cache-hostile, measured 2026-08-19).
+    res_mask_t = np.zeros((words, m_pad), dtype=np.uint32)
+    np.bitwise_or.at(
+        res_mask_t, (off % words, pu),
+        np.uint32(1) << (off // words).astype(np.uint32),
+    )
+    res_t2b = np.repeat(np.arange(n_blocks, dtype=np.int32), padded_b // res_tile)
+    # slot-major orientation (uint16 — see spmm_pallas._unpack_tile_t16):
+    # per edge, slot pos -> (tile, slot-in-tile); lane = tile*res_ob +
+    # out-row offset; bit-major within the slot axis.  Requires
+    # res_tile % 16 == 0 (true for every production layout; tiny test
+    # tiles fall back to an empty sentinel — the transposed kernel is
+    # unusable there anyway).
+    if sw > 0:
+        n_tiles = m_pad // res_tile
+        mask_s = np.zeros((sw, n_tiles * res_ob), dtype=np.uint16)
+        si = pu % res_tile
+        lane = (pu // res_tile) * res_ob + off
+        np.bitwise_or.at(
+            mask_s, (si % sw, lane), np.uint16(1) << (si // sw).astype(np.uint16)
+        )
+    else:
+        mask_s = np.zeros((0, 0), dtype=np.uint16)
+    return res_gather, res_dst, res_mask_t, mask_s, res_t2b, u
+
+
+def pack_slab_bits_t(rows: np.ndarray, cols: np.ndarray, num_rows: int, k: int):
+    """Device-layout slab builder: [K/16, R] uint16, bit-major — column j
+    -> word j % (K/16), bit j // (K/16).  Built directly in the transposed
+    orientation with one per-edge OR (spmm_pallas.py:749-761)."""
+    w16 = k // 16
+    bits = np.zeros((w16, num_rows), dtype=np.uint16)
+    np.bitwise_or.at(
+        bits, (cols % w16, rows), np.uint16(1) << (cols // w16).astype(np.uint16)
+    )
+    return bits

@@ -1,0 +1,201 @@
+"""Hybrid diagonal/hot/residual aggregation on torch tensors, transposed
+layout ([D, R], graph rows on the minor axis).
+
+The port of ``gnnadvisor_osdi21_tpu/ops/hybrid_agg.py``:
+
+- diagonal tier: ``spmm_cuda.slab_matmul_t`` with the block-local wiring,
+- hot tier: ``spmm_cuda.slab_matmul_t`` against the gathered
+  ``x[:, hot_ids]`` table,
+- both at once: ``spmm_cuda.fused_slab_matmul_t``,
+- residual tier: one or two ``index_select`` gathers (XLA ops outside the
+  kernel in the JAX package too) and ``spmm_cuda.residual_combine_t``.
+
+Every reduction is deterministic; there are no atomics.  All arrays live
+in the padded row space [num_rows]; the loss masks padding rows out.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import (
+    RES_SINGLE_MAX_CELLS, HybridGraph,
+)
+from gnnadvisor_osdi21_tpu_torch.device import resolve_device
+from gnnadvisor_osdi21_tpu_torch.ops import spmm_cuda
+
+AGG_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridTensors:
+    """The layout's tensors on one device, with the JAX ``HybridTensors``
+    fields, always in the transposed layout.  Differences: ``res_mask`` (the
+    row-major path's mask) is not kept, ``res_block_ptr`` holds each output
+    block's tile range for the residual kernel, and the TPU kernel geometry
+    (``block_rows``, ``feature_tile``), ``gemm_dtype`` and ``transposed``
+    are gone: the kernels choose their own geometry, GEMMs run in f32, and
+    the row-major path is not ported (ROADMAP.md item A.2)."""
+
+    degrees: torch.Tensor  # [R] f32
+    row_mask: torch.Tensor  # [R] f32
+    diag_bits: Optional[torch.Tensor]  # [B/16, R] uint16 or None
+    hot_bits: Optional[torch.Tensor]  # [K/16, R] uint16 or None
+    hot_ids: Optional[torch.Tensor]  # [K] int64 or None
+    res_gather: Optional[torch.Tensor]  # [Ud] int64 unique dst rows (stage 1)
+    res_dst: Optional[torch.Tensor]  # [M_pad] int64 (stage 2, or full rows)
+    res_mask_s: Optional[torch.Tensor]  # [res_tile/16, T*res_ob] uint16
+    res_t2b: Optional[torch.Tensor]  # [T] int32 tile -> out block, sorted
+    res_block_ptr: Optional[torch.Tensor]  # [num_rows/res_ob + 1] int32
+    num_rows: int = 0
+    real_nodes: int = 0
+    diag_b: int = 0
+    hot_k: int = 0
+    res_tile: int = 128
+    res_ob: int = 256
+    agg_dtype: str = "float32"
+    res_covers_all: bool = False
+
+    @property
+    def method(self) -> str:
+        return "hybrid"
+
+
+def build_hybrid_tensors(
+    hg: HybridGraph,
+    device=None,
+    agg_dtype: str = "float32",
+    agg_feature_dim: int | None = None,
+) -> HybridTensors:
+    """Move a layout onto ``device`` (None: the card).
+
+    ``agg_feature_dim`` is the width this layer's aggregation runs at; it
+    picks the residual gather per layer: a single gather from full x
+    (``res_dst`` holds full row ids, ``res_gather`` is None) while
+    ``slots x width`` stays within ``RES_SINGLE_MAX_CELLS``, else the
+    two-stage chain (hybrid_agg.py:106-125 in the JAX package)."""
+    if agg_dtype not in AGG_DTYPES:
+        raise ValueError(f"agg_dtype must be one of {sorted(AGG_DTYPES)}")
+    dev = resolve_device(device)
+
+    def put(a, dtype=None):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.to(device=dev, dtype=dtype or t.dtype)
+
+    has_res = hg.res_dst.size > 0
+    if has_res:
+        n_blocks = hg.num_rows // hg.res_ob
+        block_ptr = np.searchsorted(
+            hg.res_t2b, np.arange(n_blocks + 1)
+        ).astype(np.int32)
+    return HybridTensors(
+        degrees=put(hg.degrees),
+        row_mask=put(hg.row_mask),
+        diag_bits=put(hg.diag_bits) if hg.diag_b else None,
+        hot_bits=put(hg.hot_bits) if hg.hot_k else None,
+        hot_ids=put(hg.hot_ids, torch.int64) if hg.hot_k else None,
+        **residual_gather(hg, dev, agg_feature_dim),
+        res_mask_s=put(hg.res_mask_s) if has_res else None,
+        res_t2b=put(hg.res_t2b) if has_res else None,
+        res_block_ptr=put(block_ptr) if has_res else None,
+        num_rows=hg.num_rows,
+        real_nodes=hg.real_nodes,
+        diag_b=hg.diag_b,
+        hot_k=hg.hot_k,
+        res_tile=hg.res_tile,
+        res_ob=hg.res_ob,
+        agg_dtype=agg_dtype,
+        res_covers_all=hg.res_covers_all,
+    )
+
+
+def single_stage(hg: HybridGraph, agg_feature_dim: int | None) -> bool:
+    """Whether a layer aggregating at width ``agg_feature_dim`` gathers its
+    residual slots from full x in one step (see ``build_hybrid_tensors``)."""
+    return bool(hg.res_dst.size) and hg.res_single and (
+        agg_feature_dim is None
+        or hg.num_res_slots * agg_feature_dim <= RES_SINGLE_MAX_CELLS
+    )
+
+
+def residual_gather(
+    hg: HybridGraph, device, agg_feature_dim: int | None
+) -> dict[str, Optional[torch.Tensor]]:
+    """``res_gather``/``res_dst`` for a layer that aggregates at width
+    ``agg_feature_dim``."""
+    if hg.res_dst.size == 0:
+        return {"res_gather": None, "res_dst": None}
+    dev = resolve_device(device)
+    if single_stage(hg, agg_feature_dim):
+        dst = torch.from_numpy(hg.res_gather[hg.res_dst].astype(np.int64))
+        return {"res_gather": None, "res_dst": dst.to(dev)}
+    return {
+        "res_gather": torch.from_numpy(hg.res_gather.astype(np.int64)).to(dev),
+        "res_dst": torch.from_numpy(hg.res_dst.astype(np.int64)).to(dev),
+    }
+
+
+def _tiers_transposed(x_t: torch.Tensor, ht: HybridTensors) -> torch.Tensor:
+    """Sum of the tiers ([D, R] in and out, no degree scaling)."""
+    out = None
+    if ht.diag_b and ht.hot_k:
+        x_hot_t = x_t.index_select(1, ht.hot_ids)
+        out = spmm_cuda.fused_slab_matmul_t(
+            ht.diag_bits, ht.hot_bits, x_t, x_hot_t, ht.diag_b
+        )
+    else:
+        if ht.diag_b:
+            out = spmm_cuda.slab_matmul_t(
+                ht.diag_bits, x_t, table_block_cols=ht.diag_b
+            )
+        if ht.hot_k:
+            x_hot_t = x_t.index_select(1, ht.hot_ids)
+            h = spmm_cuda.slab_matmul_t(ht.hot_bits, x_hot_t)
+            out = h if out is None else out + h
+    if ht.res_dst is not None:
+        r = residual_tier_t(x_t, ht)
+        out = r if out is None else out + r
+    if out is None:
+        out = torch.zeros(x_t.shape, dtype=torch.float32, device=x_t.device)
+    return out
+
+
+def residual_tier_t(src_t: torch.Tensor, ht: HybridTensors) -> torch.Tensor:
+    """Residual tier over the gather source ``src_t [D, table]``.
+
+    The combine writes zeros into output blocks that no tile visits, so
+    the JAX package's visited-block select (hybrid_agg.py:377-384) has no
+    pass of its own here, whether or not ``res_covers_all`` holds."""
+    if ht.res_gather is None:
+        rows_t = src_t.index_select(1, ht.res_dst)  # [D, M_pad]
+    else:
+        compact = src_t.index_select(1, ht.res_gather)  # [D, Ud]
+        rows_t = compact.index_select(1, ht.res_dst)  # [D, M_pad]
+    return spmm_cuda.residual_combine_t(
+        rows_t, ht.res_mask_s, ht.res_t2b, ht.res_block_ptr, ht.num_rows,
+        ht.res_ob,
+    )
+
+
+def hybrid_aggregate(
+    x: torch.Tensor, ht: HybridTensors, norm: bool
+) -> torch.Tensor:
+    """out[:, s] = Σ_{d∈N(s)} w_sd · x[:, d] over the three-tier layout,
+    x and out transposed ``[D, R]``.
+
+    GCN weighting (``norm``): pre-scale x by sqrt-degree and post-scale
+    the output, both dense, so no tier touches per-edge weights
+    (deg[s]·deg[d]·x[d] = deg[s]·(deg·x)[d])."""
+    out_dtype = x.dtype
+    if norm:
+        x = x * ht.degrees[None, :].to(x.dtype)
+    out = _tiers_transposed(
+        x.to(AGG_DTYPES[ht.agg_dtype]).contiguous(), ht
+    )
+    if norm:
+        out = out * ht.degrees[None, :]
+    return out.to(out_dtype)

@@ -1,0 +1,120 @@
+"""The torch port's hybrid layout builder and decider against the JAX
+package's (probe off): bit-identical slabs, masks and streams, and the
+same auto choices."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from gnnadvisor_osdi21_tpu.graphs import hybrid as jh
+from gnnadvisor_osdi21_tpu.graphs.loader import synthesize_graph
+from gnnadvisor_osdi21_tpu.ops.spmm_pallas import pack_slab_bits_t
+from gnnadvisor_osdi21_tpu.tuner.decider import InputProperty as JaxProperty
+from gnnadvisor_osdi21_tpu_torch.graphs import hybrid as th
+from gnnadvisor_osdi21_tpu_torch.tuner.decider import InputProperty
+
+TIERS = {
+    "diag": dict(diag_b=512, hot_k=0),
+    "hot": dict(diag_b=0, hot_k=512),
+    "both": dict(diag_b=512, hot_k=512),
+    "none": dict(diag_b=0, hot_k=0),
+}
+GEOMETRIES = {"ob512_s256": (512, 256), "ob64_s32": (64, 32)}
+
+
+def assert_same_layout(a, b):
+    assert [f.name for f in dataclasses.fields(a)] == [
+        f.name for f in dataclasses.fields(b)
+    ]
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray):
+            assert x.dtype == y.dtype and x.shape == y.shape, f.name
+            assert x.tobytes() == y.tobytes(), f.name
+        else:
+            assert x == y, f.name
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("tiers", sorted(TIERS))
+@pytest.mark.parametrize("graph", ["small_graph", "skewed_graph"])
+def test_build_hybrid_bit_identical(graph, tiers, geometry, request):
+    g = request.getfixturevalue(graph)
+    res_ob, res_tile = GEOMETRIES[geometry]
+    kw = dict(TIERS[tiers], res_ob=res_ob, res_tile=res_tile)
+    assert_same_layout(
+        jh.build_hybrid(g, probe=False, **kw), th.build_hybrid(g, **kw)
+    )
+
+
+@pytest.mark.parametrize("kind", ["powerlaw", "web", "community"])
+def test_auto_layout_and_decider_match_jax(kind):
+    """Auto tiers and residual geometry (the model alone: the JAX probe is
+    off), through the decider as a user calls it."""
+    g = synthesize_graph(6000, 60000, num_features=12, num_classes=5,
+                         kind=kind, seed=2)
+    jp = JaxProperty(g, hidden_dim=8, probe=False).decider()
+    tp = InputProperty(g, hidden_dim=8).decider()
+    assert (tp.diag_b, tp.hot_k) == (jp.diag_b, jp.hot_k)
+    jp.build_tensors()
+    tp.build_tensors(device="cpu")
+    assert (tp.diag_b, tp.hot_k) == (jp.diag_b, jp.hot_k)
+    assert_same_layout(jp.hybrid_graph, tp.hybrid_graph)
+    x = g.init_embedding(12)
+    assert np.array_equal(jp.pad_features(x), tp.pad_features(x))
+
+
+def test_pack_slab_bits_t_matches_jax():
+    rng = np.random.default_rng(3)
+    rows, cols = rng.integers(0, 700, 5000), rng.integers(0, 1024, 5000)
+    a = pack_slab_bits_t(rows, cols, 768, 1024)
+    b = th.pack_slab_bits_t(rows, cols, 768, 1024)
+    assert a.dtype == b.dtype == np.uint16 and a.tobytes() == b.tobytes()
+
+
+def test_user_fixed_tiers_pass_through(skewed_graph):
+    tp = InputProperty(
+        skewed_graph, hidden_dim=8, method="hybrid", diag_b=512, hot_k=512
+    ).decider()
+    assert (tp.diag_b, tp.hot_k) == (512, 512)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(method="ell"), dict(transposed=False), dict(enable_reorder=True),
+    dict(model="gin"), dict(manual_mode=True),
+])
+def test_unported_options_name_the_roadmap(skewed_graph, kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item A"):
+        InputProperty(skewed_graph, hidden_dim=8, **kwargs).decider()
+
+
+def test_auto_method_below_dense_limit_is_not_ported(small_graph):
+    with pytest.raises(NotImplementedError, match="'dense'"):
+        InputProperty(small_graph, hidden_dim=8).decider()
+
+
+def test_layers_straddling_the_gather_width_limit(monkeypatch):
+    """GCN aggregates at the hidden width, then at the class count; when
+    the width limit falls between them, the layers differ in their
+    residual gather only, as in the JAX decider."""
+    from gnnadvisor_osdi21_tpu.graphs import hybrid as jax_hybrid
+    from gnnadvisor_osdi21_tpu_torch.ops import hybrid_agg
+
+    g = synthesize_graph(6000, 60000, num_features=12, num_classes=22,
+                         kind="web", seed=2)
+    tp = InputProperty(g, hidden_dim=8, diag_b=0, hot_k=0).decider()
+    hg = th.build_hybrid(g, diag_b=0, hot_k=0)
+    assert hg.res_single
+    limit = hg.num_res_slots * 10  # between 8 and 22 columns
+    monkeypatch.setattr(hybrid_agg, "RES_SINGLE_MAX_CELLS", limit)
+    monkeypatch.setattr(jax_hybrid, "RES_SINGLE_MAX_CELLS", limit)
+    ht_in, ht_hid = tp.build_tensors(device="cpu")
+    jin, jhid = JaxProperty(
+        g, hidden_dim=8, diag_b=0, hot_k=0, probe=False
+    ).decider().build_tensors()
+    for t, j in ((ht_in, jin), (ht_hid, jhid)):
+        assert (t.res_gather is None) == (j.res_gather is None)
+        assert np.array_equal(t.res_dst.numpy(), np.asarray(j.res_dst))
+    assert ht_in.res_gather is None and ht_hid.res_gather is not None
+    assert ht_hid.res_mask_s is ht_in.res_mask_s

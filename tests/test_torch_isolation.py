@@ -1,0 +1,145 @@
+"""The torch port stands alone: it imports neither JAX nor the JAX
+package, its entry points refuse to fall back to the CPU, and a kernel
+wrapper given a CUDA tensor never reaches its plain version."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import build_hybrid
+from gnnadvisor_osdi21_tpu_torch.graphs.loader import synthesize_graph
+from gnnadvisor_osdi21_tpu_torch.models.gcn import GCN
+from gnnadvisor_osdi21_tpu_torch.ops import hybrid_agg, spmm_cuda
+from gnnadvisor_osdi21_tpu_torch.train import train_and_time
+from gnnadvisor_osdi21_tpu_torch.tuner.decider import InputProperty
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_MODULES = [
+    "gnnadvisor_osdi21_tpu_torch",
+    "gnnadvisor_osdi21_tpu_torch.device",
+    "gnnadvisor_osdi21_tpu_torch.graphs.loader",
+    "gnnadvisor_osdi21_tpu_torch.graphs.hybrid",
+    "gnnadvisor_osdi21_tpu_torch.tuner.decider",
+    "gnnadvisor_osdi21_tpu_torch.ops._build",
+    "gnnadvisor_osdi21_tpu_torch.ops.spmm_cuda",
+    "gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg",
+    "gnnadvisor_osdi21_tpu_torch.ops.aggregate",
+    "gnnadvisor_osdi21_tpu_torch.models",
+    "gnnadvisor_osdi21_tpu_torch.models.gcn",
+    "gnnadvisor_osdi21_tpu_torch.train",
+    "chip_smoke",
+]
+
+_CHECK = """
+import importlib, sys
+for name in {modules!r}:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "gnnadvisor_osdi21_tpu"
+             or m.startswith("gnnadvisor_osdi21_tpu."))
+assert not bad, bad
+print("isolated", len({modules!r}))
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHECK.format(modules=PORT_MODULES)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == f"isolated {len(PORT_MODULES)}"
+
+
+def test_every_port_module_is_listed():
+    pkg = os.path.join(ROOT, "gnnadvisor_osdi21_tpu_torch")
+    found = set()
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), ROOT)
+                mod = rel[:-3].replace(os.sep, ".")
+                found.add(mod[: -len(".__init__")] if mod.endswith(
+                    ".__init__") else mod)
+    assert found <= set(PORT_MODULES) | {
+        "gnnadvisor_osdi21_tpu_torch.graphs",
+        "gnnadvisor_osdi21_tpu_torch.ops",
+        "gnnadvisor_osdi21_tpu_torch.tuner",
+    }, sorted(found - set(PORT_MODULES))
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None runs on it")
+
+
+def test_entry_points_refuse_cpu_fallback(no_card, skewed_graph):
+    g = synthesize_graph(5000, 30000, num_features=8, num_classes=3, seed=1)
+    prop = InputProperty(g, hidden_dim=4).decider()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prop.build_tensors()
+    hg = build_hybrid(skewed_graph, diag_b=512, hot_k=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hybrid_agg.build_hybrid_tensors(hg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GCN(8, 4, 3)
+    hts = (hybrid_agg.build_hybrid_tensors(hg, device="cpu"),) * 2
+    x = np.zeros((hg.num_rows, 8), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_and_time("gcn", hts, x, np.zeros(hg.num_rows, np.int32), 4, 3)
+
+
+class _CudaTyped(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: enough to steer dispatch."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _cuda_typed(t: torch.Tensor) -> torch.Tensor:
+    return torch.Tensor._make_subclass(_CudaTyped, t)
+
+
+@pytest.mark.parametrize("kernel", spmm_cuda.KERNELS)
+def test_cuda_tensors_never_reach_the_plain_version(kernel, monkeypatch):
+    """Stub the plain versions to fail and the launchers to record: a
+    wrapper given CUDA tensors must reach the launcher."""
+    launched = []
+
+    def plain(*args, **kwargs):
+        raise AssertionError(f"{kernel}: CUDA operands reached the plain version")
+
+    for name in spmm_cuda.KERNELS:
+        monkeypatch.setattr(spmm_cuda, f"{name}_plain", plain)
+        monkeypatch.setattr(
+            spmm_cuda, f"_{name}_cuda",
+            lambda *a, _n=name: launched.append(_n) or "launched",
+        )
+    bits = _cuda_typed(torch.zeros((4, 512), dtype=torch.uint16))
+    x_hot = _cuda_typed(torch.zeros((8, 64)))
+    x = _cuda_typed(torch.zeros((8, 512)))
+    if kernel == "slab_matmul_t":
+        got = spmm_cuda.slab_matmul_t(bits, x_hot)
+    elif kernel == "fused_slab_matmul_t":
+        got = spmm_cuda.fused_slab_matmul_t(bits, bits, x, x_hot, 64)
+    else:
+        mask = _cuda_typed(torch.zeros((2, 2 * 256), dtype=torch.uint16))
+        rows = _cuda_typed(torch.zeros((8, 2 * 32)))
+        t2b = _cuda_typed(torch.tensor([0, 1], dtype=torch.int32))
+        ptr = _cuda_typed(torch.tensor([0, 1, 2], dtype=torch.int32))
+        got = spmm_cuda.residual_combine_t(rows, mask, t2b, ptr, 512, 256)
+    assert got == "launched" and launched == [kernel]
+
+
+def test_mixed_devices_are_refused():
+    bits = torch.zeros((4, 512), dtype=torch.uint16)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        spmm_cuda.slab_matmul_t(bits, _cuda_typed(torch.zeros((8, 64))))
