@@ -12,14 +12,20 @@ PyTorch version on the card:
 - layouts: an amazon0505-scale web graph through the auto decider, the
   same graph with fixed tiers (diag 512, hot 512), and a 10k power-law
   graph;
-- phase 2: each kernel against its plain version at the layouts' shapes,
-  for D in {16, 22, 5} and f32/bf16, with its time, its byte bound and
-  the time of ``torch.sparse.mm`` over the same edges;
-- phase 3: GCN 96 -> 16 -> 22 training on the auto layout: the first
-  step's loss and gradients against the plain path, launch counts, and
-  ``epoch_ms`` over timed epochs;
-- phase 4: the other wirings (fused diag+hot; diag 4096 with a residual
-  that does not cover every block) for a few steps each.
+- phase 2: each transposed kernel against its plain version at the
+  layouts' shapes, for D in {16, 22, 5} and f32/bf16, with its time, its
+  byte bound and the time of ``torch.sparse.mm`` over the same edges;
+  then each row-major kernel the same way, for D in {96, 64, 22, 16, 5};
+- phase 3: GCN 96 -> 16 -> 22 training on the auto layout (transposed):
+  the first step's loss and gradients against the plain path, launch
+  counts, and ``epoch_ms`` over timed epochs;
+- phase 4: the other transposed wirings (fused diag+hot; diag 4096 with a
+  residual that does not cover every block) for a few steps each;
+- phase 5: GIN 96 -> 64 x4 -> 22 training on the auto layout, row-major:
+  the first step against the plain path at f32 and at bf16 aggregation,
+  launch counts, ``gin_epoch_ms`` over timed epochs, and the device time
+  of three steps by kernel (``torch.profiler``);
+- phase 6: GCN on the row-major fused and 10k layouts for a few steps.
 
 Every check raises on failure, so the exit code is non-zero.  The last
 two lines are a JSON ``kernels`` record and the ``{"ok": true, ...}``
@@ -29,6 +35,7 @@ line.  Without a CUDA card it exits 1 before printing either.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -42,8 +49,8 @@ import torch
 from gnnadvisor_osdi21_tpu_torch.graphs.loader import synthesize_graph
 from gnnadvisor_osdi21_tpu_torch.ops import _build, spmm_cuda
 from gnnadvisor_osdi21_tpu_torch.ops.aggregate import exact_f32_matmul
-from gnnadvisor_osdi21_tpu_torch.train import nll_loss, train_and_time
-from gnnadvisor_osdi21_tpu_torch.models.gcn import GCN
+from gnnadvisor_osdi21_tpu_torch.train import MODELS, nll_loss, train_and_time
+from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import build_layer_tensors
 from gnnadvisor_osdi21_tpu_torch.tuner.decider import InputProperty
 
 # H100 SXM data sheet (dense, no sparsity): memory rate and f32 rate
@@ -57,19 +64,36 @@ ATOL, RTOL = 1e-4, 1e-5
 # gradients differ by summation order (and the rare bf16 rounding flip it
 # causes in the aggregation operand)
 STEP_RTOL = 1e-4
+# GIN's first step at bf16 aggregation: every layer casts its input to
+# bf16, so a summation-order difference in one layer's f32 output can flip
+# a rounding of the next layer's operand, by one bf16 unit in the last
+# place (2^-8 of its value).  The bound is that unit, relative to the
+# largest value: what every operand of a same-signed sum flipping the
+# same way would give.  A flip needs an f32 difference that straddles a
+# bf16 rounding boundary, so flips are rare and the error stays far below
+GIN_BF16_RTOL = 2.0 ** -8
 REPS = 20  # CUDA-event-timed launches per median
 DIMS = (16, 22, 5)
+ROW_DIMS = (96, 64, 22, 16, 5)  # the row-major kernels' widths
 DTYPES = (torch.float32, torch.bfloat16)
+GIN_HIDDEN = 64
+DEVICE = "cuda"  # the card; every tensor of the checks is put there
 
 SOURCES = {
     "slab_matmul_t": "gnnadvisor_osdi21_tpu_torch/csrc/slab_t.cu",
     "fused_slab_matmul_t": "gnnadvisor_osdi21_tpu_torch/csrc/slab_t.cu",
     "residual_combine_t": "gnnadvisor_osdi21_tpu_torch/csrc/residual_t.cu",
+    "slab_matmul": "gnnadvisor_osdi21_tpu_torch/csrc/slab.cu",
+    "fused_slab_matmul": "gnnadvisor_osdi21_tpu_torch/csrc/slab.cu",
+    "residual_combine": "gnnadvisor_osdi21_tpu_torch/csrc/residual.cu",
 }
 REPLACES = {
     "slab_matmul_t": "gnnadvisor_osdi21_tpu/ops/spmm_pallas.py:469",
     "fused_slab_matmul_t": "gnnadvisor_osdi21_tpu/ops/spmm_pallas.py:556",
     "residual_combine_t": "gnnadvisor_osdi21_tpu/ops/spmm_pallas.py:649",
+    "slab_matmul": "gnnadvisor_osdi21_tpu/ops/spmm_pallas.py:143",
+    "fused_slab_matmul": "gnnadvisor_osdi21_tpu/ops/spmm_pallas.py:259",
+    "residual_combine": "gnnadvisor_osdi21_tpu/ops/spmm_pallas.py:354",
 }
 
 T0 = time.perf_counter()
@@ -112,12 +136,24 @@ def bit_coords(words: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return np.concatenate(js), np.concatenate(ns)
 
 
+def mask32_coords(mask: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Set bits of an out-row-major uint32 [W, M] mask as (out row o, slot
+    m): bit k of word w is row k·W + w."""
+    w = mask.shape[0]
+    os_, ms = [], []
+    for k in range(32):
+        ww, m = np.nonzero((mask >> np.uint32(k)) & np.uint32(1))
+        os_.append(k * w + ww)
+        ms.append(m)
+    return np.concatenate(os_), np.concatenate(ms)
+
+
 def csr(rows: np.ndarray, cols: np.ndarray, shape) -> torch.Tensor:
     """0/1 CSR matrix on the card (the library yardstick's operand)."""
     idx = torch.from_numpy(np.stack([rows, cols]).astype(np.int64))
     vals = torch.ones(idx.shape[1], dtype=torch.float32)
     coo = torch.sparse_coo_tensor(idx, vals, shape).coalesce()
-    return coo.to_sparse_csr().cuda()
+    return coo.to_sparse_csr().to(DEVICE)
 
 
 class Record:
@@ -163,7 +199,15 @@ def compare(rec: Record, label: str, kernel, plain) -> None:
 
 
 def features(d: int, cols: int, dtype, gen: torch.Generator) -> torch.Tensor:
-    return torch.randn((d, cols), generator=gen, device="cuda").to(dtype)
+    return torch.randn((d, cols), generator=gen, device=DEVICE).to(dtype)
+
+
+def row_features(n: int, d: int, dtype, gen: torch.Generator) -> torch.Tensor:
+    return torch.randn((n, d), generator=gen, device=DEVICE).to(dtype)
+
+
+# every kernel's launch count at 0: a path's expected counts start here
+NO_LAUNCHES = dict.fromkeys(spmm_cuda.KERNELS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +236,7 @@ def phase1() -> None:
     log(f"phase 1: built {path.rsplit('/', 1)[-1]} in "
         f"{time.perf_counter() - start:.1f} s")
     for line in output.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "properties" in line:
             log(f"  ptxas: {line.strip()}")
 
 
@@ -234,21 +278,51 @@ def build_layouts():
 
 def uncovered(hg):
     """The headline residual stream with the tiles of odd blocks dropped:
-    a stream at the same geometry in which half the blocks have no tile."""
+    a stream at the same geometry in which half the blocks have no tile.
+    Returns both masks (transposed, row-major), t2b, block_ptr and the
+    slot count."""
     keep = (hg.res_t2b % 2) == 0
     tiles = np.nonzero(keep)[0]
     ob, s = hg.res_ob, hg.res_tile
     lanes = (tiles[:, None] * ob + np.arange(ob)[None, :]).reshape(-1)
     mask_s = np.ascontiguousarray(hg.res_mask_s[:, lanes])
+    slots = (tiles[:, None] * s + np.arange(s)[None, :]).reshape(-1)
+    mask = np.ascontiguousarray(hg.res_mask[:, slots])
     t2b = hg.res_t2b[keep]
     ptr = np.searchsorted(t2b, np.arange(hg.num_rows // ob + 1))
-    return mask_s, t2b, ptr.astype(np.int32), len(tiles) * s
+    return mask_s, mask, t2b, ptr.astype(np.int32), len(tiles) * s
+
+
+def rowmajor_tensors(layouts) -> dict:
+    """The row-major tensors of the three layouts, from the host layouts
+    already built: GIN's aggregation widths on the auto layout, GCN's on
+    the other two."""
+    start = time.perf_counter()
+    (g, head, _), (_, fixed, _), (_, small, _) = layouts
+    gin_dims = InputProperty(g, hidden_dim=GIN_HIDDEN, model="gin",
+                             transposed=False).agg_dims()
+    gcn_dims = InputProperty(g, hidden_dim=16, transposed=False).agg_dims()
+    kw = dict(agg_dtype="bfloat16", transposed=False, device=DEVICE)
+    rm = {
+        "gin": build_layer_tensors(head.hybrid_graph, gin_dims, **kw),
+        "fixed": build_layer_tensors(fixed.hybrid_graph, gcn_dims, **kw),
+        "small": build_layer_tensors(small.hybrid_graph, gcn_dims, **kw),
+    }
+    gathers = {k: ["one" if h.res_gather is None else "two" for h in hts]
+               for k, hts in rm.items() if hts[0].res_dst is not None}
+    log(f"layouts row-major: GIN aggregation widths {gin_dims}, GCN "
+        f"{gcn_dims}; residual gather stages per layer {gathers} "
+        f"({time.perf_counter() - start:.1f} s)")
+    require(all(h.res_mask is not None and h.res_mask_s is None
+                for hts in rm.values() for h in hts if h.res_dst is not None),
+            "row-major tensors keep the row-major mask only")
+    return rm
 
 
 def phase2(layouts, recs) -> None:
     (_, head, hts), (_, fixed, fts), (_, small, sts) = layouts
     hg, fg, sg = head.hybrid_graph, fixed.hybrid_graph, small.hybrid_graph
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
     log("phase 2: kernels against their plain versions on the card")
 
     # --- slab_matmul_t: hot K=4096, diag B=512 and B=4096 ---------------
@@ -315,8 +389,8 @@ def phase2(layouts, recs) -> None:
     rec = recs["residual_combine_t"]
     ht = hts[0]
     m_pad = hg.num_res_slots
-    mask_u, t2b_u, ptr_u, m_u = uncovered(hg)
-    mask_u, t2b_u, ptr_u = (torch.from_numpy(a).cuda()
+    mask_u, _, t2b_u, ptr_u, m_u = uncovered(hg)
+    mask_u, t2b_u, ptr_u = (torch.from_numpy(a).to(DEVICE)
                             for a in (mask_u, t2b_u, ptr_u))
     st = sts[0]
     streams = [
@@ -356,6 +430,134 @@ def phase2(layouts, recs) -> None:
         f"{rec.library_ms:.4f} ms, bound {rec.bound_ms:.4f} ms")
 
 
+def timed(rec: Record, label: str, kernel, plain, library, nbytes: int,
+          adds: int, record: bool) -> None:
+    """Time a kernel at one shape; with ``record``, also its plain version
+    and the library call, and keep all three with the bound in ``rec``."""
+    ms = time_ms(kernel)
+    lib_ms = time_ms(library)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = adds / F32_OPS_PER_S * 1e3
+    extra = ""
+    if record:
+        rec.ms, rec.library_ms = ms, lib_ms
+        rec.plain_ms = time_ms(plain)
+        bound(rec, nbytes, adds)
+        extra = f", plain {rec.plain_ms:.4f} ms"
+    log(f"  {rec.name} {label}: {ms:.4f} ms{extra}, torch.sparse.mm (f32 "
+        f"CSR) {lib_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+
+
+def phase2_rowmajor(layouts, rm, recs) -> None:
+    """The row-major kernels against their plain versions, at the shapes of
+    the row-major paths (GIN's widths 96 and 64, GCN's 16 and 22, and 5)."""
+    (_, head, _), (_, fixed, _), (_, small, _) = layouts
+    hg, fg, sg = head.hybrid_graph, fixed.hybrid_graph, small.hybrid_graph
+    ht, ft, st = rm["gin"][0], rm["fixed"][0], rm["small"][0]
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    log("phase 2 (row-major): kernels against their plain versions on the "
+        "card")
+
+    # --- slab_matmul: hot K=4096, diag B=512 and B=4096 -----------------
+    rec = recs["slab_matmul"]
+    cases = [("hot K=4096", ht.hot_bits, None, hg.hot_k),
+             ("diag B=512", ft.diag_bits, 512, fg.num_rows),
+             ("diag B=4096", st.diag_bits, 4096, sg.num_rows)]
+    for label, bits, block, n in cases:
+        for d in ROW_DIMS:
+            for dt in DTYPES:
+                x = row_features(n, d, dt, gen)
+                compare(rec, f"slab_matmul {label} D={d} {dt}",
+                        lambda: spmm_cuda.slab_matmul(bits, x, block),
+                        lambda: spmm_cuda.slab_matmul_plain(bits, x, block))
+    # timed at the main path's hidden aggregations (hot, D=64, bf16)
+    bits = ht.hot_bits
+    j, r = bit_coords(hg.hot_bits)
+    a = csr(r, j, (hg.num_rows, hg.hot_k))
+    for d in (GIN_HIDDEN, 96, 16):
+        x = row_features(hg.hot_k, d, torch.bfloat16, gen)
+        xf = x.float()
+        timed(rec, f"hot K=4096 D={d} bf16 ({len(j)} nnz)",
+              lambda: spmm_cuda.slab_matmul(bits, x),
+              lambda: spmm_cuda.slab_matmul_plain(bits, x),
+              lambda: torch.sparse.mm(a, xf),
+              bits.numel() * 2 + x.numel() * 2 + d * hg.num_rows * 4,
+              len(j) * d, record=d == GIN_HIDDEN)
+
+    # --- fused_slab_matmul at (512, 512) --------------------------------
+    rec = recs["fused_slab_matmul"]
+    dbits, hbits = ft.diag_bits, ft.hot_bits
+    for d in ROW_DIMS:
+        for dt in DTYPES:
+            x = row_features(fg.num_rows, d, dt, gen)
+            xh = row_features(fg.hot_k, d, dt, gen)
+            compare(rec, f"fused_slab_matmul (512, 512) D={d} {dt}",
+                    lambda: spmm_cuda.fused_slab_matmul(
+                        dbits, hbits, x, xh, 512),
+                    lambda: spmm_cuda.fused_slab_matmul_plain(
+                        dbits, hbits, x, xh, 512))
+    jd, rd = bit_coords(fg.diag_bits)
+    jh, rh = bit_coords(fg.hot_bits)
+    a = csr(np.concatenate([rd, rh]),
+            np.concatenate([(rd // 512) * 512 + jd, fg.num_rows + jh]),
+            (fg.num_rows, fg.num_rows + fg.hot_k))
+    nnz = len(jd) + len(jh)
+    # timed at the path that launches it: GCN's first aggregation, D=16
+    for d in (16, GIN_HIDDEN):
+        x = row_features(fg.num_rows, d, torch.bfloat16, gen)
+        xh = row_features(fg.hot_k, d, torch.bfloat16, gen)
+        xr = torch.cat([x, xh], dim=0).float()
+        timed(rec, f"(512, 512) D={d} bf16 ({nnz} nnz)",
+              lambda: spmm_cuda.fused_slab_matmul(dbits, hbits, x, xh, 512),
+              lambda: spmm_cuda.fused_slab_matmul_plain(
+                  dbits, hbits, x, xh, 512),
+              lambda: torch.sparse.mm(a, xr),
+              dbits.numel() * 2 + hbits.numel() * 2 + x.numel() * 2
+              + xh.numel() * 2 + d * fg.num_rows * 4, nnz * d,
+              record=d == 16)
+
+    # --- residual_combine at (OB 512, S 256): covering or not -----------
+    rec = recs["residual_combine"]
+    m_pad = hg.num_res_slots
+    _, mask_u, t2b_u, ptr_u, m_u = uncovered(hg)
+    mask_u, t2b_u, ptr_u = (torch.from_numpy(a).to(DEVICE)
+                            for a in (mask_u, t2b_u, ptr_u))
+    streams = [
+        ("(512, 256) covering", ht.res_mask, ht.res_t2b, ht.res_block_ptr,
+         m_pad, hg.num_rows, hg.res_ob),
+        ("(512, 256) half the blocks empty", mask_u, t2b_u, ptr_u, m_u,
+         hg.num_rows, hg.res_ob),
+        (f"10k ({sg.res_ob}, {sg.res_tile}) not covering", st.res_mask,
+         st.res_t2b, st.res_block_ptr, sg.num_res_slots, sg.num_rows,
+         sg.res_ob),
+    ]
+    for label, mask, t2b, ptr, m, n_rows, ob in streams:
+        for d in ROW_DIMS:
+            for dt in DTYPES:
+                x = row_features(m, d, dt, gen)
+                compare(rec, f"residual_combine {label} D={d} {dt}",
+                        lambda: spmm_cuda.residual_combine(
+                            x, mask, t2b, ptr, n_rows, ob),
+                        lambda: spmm_cuda.residual_combine_plain(
+                            x, mask, t2b, n_rows, ob))
+    o, slot = mask32_coords(hg.res_mask)
+    a = csr(hg.res_t2b[slot // hg.res_tile].astype(np.int64) * hg.res_ob + o,
+            slot, (hg.num_rows, m_pad))
+    args = (ht.res_mask, ht.res_t2b, ht.res_block_ptr, hg.num_rows, hg.res_ob)
+    for d in (GIN_HIDDEN, 96, 16):
+        x = row_features(m_pad, d, torch.bfloat16, gen)
+        xf = x.float()
+        timed(rec, f"(512, 256) D={d} bf16 ({len(o)} nnz)",
+              lambda: spmm_cuda.residual_combine(x, *args),
+              lambda: spmm_cuda.residual_combine_plain(
+                  x, ht.res_mask, ht.res_t2b, hg.num_rows, hg.res_ob),
+              lambda: torch.sparse.mm(a, xf),
+              ht.res_mask.numel() * 4 + x.numel() * 2
+              + ht.res_t2b.numel() * 4 + ht.res_block_ptr.numel() * 4
+              + d * hg.num_rows * 4, len(o) * d, record=d == GIN_HIDDEN)
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Route the hybrid path through the plain versions (for comparison)."""
@@ -367,6 +569,11 @@ def plain_kernels():
         "residual_combine_t": lambda rows_t, mask_s, t2b, _ptr, rows, ob: (
             spmm_cuda.residual_combine_t_plain(rows_t, mask_s, t2b, rows, ob)
         ),
+        "slab_matmul": spmm_cuda.slab_matmul_plain,
+        "fused_slab_matmul": spmm_cuda.fused_slab_matmul_plain,
+        "residual_combine": lambda rows, mask, t2b, _ptr, n, ob: (
+            spmm_cuda.residual_combine_plain(rows, mask, t2b, n, ob)
+        ),
     }
     try:
         for n, fn in plain.items():
@@ -377,20 +584,28 @@ def plain_kernels():
             setattr(spmm_cuda, n, fn)
 
 
-def first_step(graph, prop, hts, label: str) -> None:
+def model_inputs(graph, prop, hts, model: str, hidden: int):
+    """Features in the layout's orientation, labels, row mask and a fresh
+    model on the card."""
+    x = prop.pad_features(graph.init_embedding(graph.num_features))
+    x = torch.from_numpy(x.T.copy() if hts[0].transposed else x).to(DEVICE)
+    y = torch.from_numpy(prop.pad_features(graph.init_labels(22))).to(DEVICE)
+    mask = torch.from_numpy(prop.hybrid_graph.row_mask).to(DEVICE)
+    net = MODELS[model](graph.num_features, hidden, 22, device=DEVICE)
+    return x, y, mask, net
+
+
+def first_step(graph, prop, hts, label: str, model: str = "gcn",
+               hidden: int = 16, rtol: float = STEP_RTOL) -> dict:
     """One forward/backward on the kernels and on the plain versions, same
-    weights: loss and gradients must agree."""
-    hg = prop.hybrid_graph
-    x_t = torch.from_numpy(
-        prop.pad_features(graph.init_embedding(graph.num_features)).T.copy()
-    ).cuda()
-    y = torch.from_numpy(prop.pad_features(graph.init_labels(22))).cuda()
-    mask = torch.from_numpy(hg.row_mask).cuda()
-    net = GCN(graph.num_features, 16, 22, device="cuda")
+    weights: loss and gradients must agree.  Returns the kernel run's
+    launch counts."""
+    transposed = hts[0].transposed
+    x, y, mask, net = model_inputs(graph, prop, hts, model, hidden)
 
     def run():
         net.zero_grad(set_to_none=True)
-        loss = nll_loss(net(x_t, hts), y, mask)
+        loss = nll_loss(net(x, hts), y, mask, transposed)
         loss.backward()
         return loss.detach(), [p.grad.detach().clone() for p in net.parameters()]
 
@@ -401,23 +616,28 @@ def first_step(graph, prop, hts, label: str) -> None:
         loss_p, grads_p = run()
     rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     log(f"  {label} first step: loss {float(loss_k):.6f} (plain "
-        f"{float(loss_p):.6f}, rel {rel:.2e}); launches {counts}")
-    require(math.isfinite(float(loss_k)) and rel <= STEP_RTOL,
+        f"{float(loss_p):.6f}, rel {rel:.2e}, bound {rtol:.2e}); launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    require(math.isfinite(float(loss_k)) and rel <= rtol,
             f"{label}: first-step loss disagrees with the plain path")
-    for name, gk, gp in zip(("conv1", "conv2"), grads_k, grads_p):
+    names = [n for n, _ in net.named_parameters()]
+    for name, gk, gp in zip(names, grads_k, grads_p):
         grel = float((gk - gp).abs().max() / gp.abs().max())
         log(f"  {label} grad {name}: max rel err {grel:.2e}")
-        require(bool(torch.isfinite(gk).all()) and grel <= STEP_RTOL,
+        require(bool(torch.isfinite(gk).all()) and grel <= rtol,
                 f"{label}: gradient {name} disagrees with the plain path")
+    return counts
 
 
-def train(graph, prop, hts, epochs: int, dry: int):
+def train(graph, prop, hts, epochs: int, dry: int, model: str = "gcn",
+          hidden: int = 16):
     """Reset the launch counts, train, and return (result, counts)."""
     x = prop.pad_features(graph.init_embedding(graph.num_features))
     y = prop.pad_features(graph.init_labels(22))
     spmm_cuda.reset_launches()
-    res = train_and_time("gcn", hts, x, y, 16, 22, num_epochs=epochs,
-                         dry_run=dry, mask=prop.hybrid_graph.row_mask)
+    res = train_and_time(model, hts, x, y, hidden, 22, num_epochs=epochs,
+                         dry_run=dry, mask=prop.hybrid_graph.row_mask,
+                         device=DEVICE)
     counts = dict(spmm_cuda.launches)
     losses = res["losses"]
     require(len(losses) == epochs + dry and all(map(math.isfinite, losses)),
@@ -434,7 +654,7 @@ def phase3(layouts, recs) -> float:
     steps = 25
     log(f"  trained {steps} steps: loss {res['losses'][0]:.5f} -> "
         f"{res['losses'][-1]:.5f}; launches {counts}")
-    require(counts == {"slab_matmul_t": 4 * steps, "fused_slab_matmul_t": 0,
+    require(counts == {**NO_LAUNCHES, "slab_matmul_t": 4 * steps,
                        "residual_combine_t": 4 * steps},
             "hot and residual kernels launch exactly 4 times per step")
     recs["slab_matmul_t"].launches = counts["slab_matmul_t"]
@@ -449,10 +669,9 @@ def phase4(layouts, recs) -> None:
     first_step(g, fixed, fts, "diag 512 + hot 512")
     _, counts = train(g, fixed, fts, epochs=3, dry=0)
     log(f"  diag 512 + hot 512, 3 steps: launches {counts}")
-    require(counts["fused_slab_matmul_t"] == 12
-            and counts["slab_matmul_t"] == 0
-            and counts["residual_combine_t"] == (
-                12 if fixed.hybrid_graph.num_res_slots else 0),
+    require(counts == {**NO_LAUNCHES, "fused_slab_matmul_t": 12,
+                       "residual_combine_t": (
+                           12 if fixed.hybrid_graph.num_res_slots else 0)},
             "both slab tiers run as one fused launch per aggregation")
     recs["fused_slab_matmul_t"].launches = counts["fused_slab_matmul_t"]
     g10, small, sts = layouts[2]
@@ -460,8 +679,105 @@ def phase4(layouts, recs) -> None:
     _, counts = train(g10, small, sts, epochs=3, dry=0)
     log(f"  10k power-law (diag 4096, residual not covering), 3 steps: "
         f"launches {counts}")
-    require(counts == {"slab_matmul_t": 12, "fused_slab_matmul_t": 0,
+    require(counts == {**NO_LAUNCHES, "slab_matmul_t": 12,
                        "residual_combine_t": 12},
+            "diag-4096 and residual kernels launch 4 times per step")
+
+
+def profile_steps(graph, prop, hts, model: str, hidden: int,
+                  steps: int = 3) -> float:
+    """Device time by kernel over a few training steps (torch.profiler);
+    logs the largest entries and returns the device's busy ms per step
+    (0 when the profiler saw no device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    transposed = hts[0].transposed
+    x, y, mask, net = model_inputs(graph, prop, hts, model, hidden)
+    opt = torch.optim.Adam(net.parameters(), lr=0.01)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        nll_loss(net(x, hts), y, mask, transposed).backward()
+        opt.step()
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    # device-side entries only: an operator's entry repeats its kernels'
+    # time
+    events = [(e.key, e.count, e.self_device_time_total)
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy = sum(t for *_, t in events) / steps / 1e3
+    log(f"  profile of {steps} {model} steps: device busy {busy:.4f} ms per "
+        f"step in {len(events)} kinds of kernel or copy")
+    for key, n, t in sorted(events, key=lambda e: -e[2])[:12]:
+        log(f"    {t / steps / 1e3:8.4f} ms/step  x{n // steps:<3d} {key[:100]}")
+    return busy
+
+
+def phase5(layouts, rm, recs) -> float:
+    g, head, _ = layouts[0]
+    hts = rm["gin"]
+    log(f"phase 5: GIN 96 -> {GIN_HIDDEN} x4 -> 22 on the amazon0505-scale "
+        "auto layout, row-major")
+    per_step = {**NO_LAUNCHES, "slab_matmul": 9, "residual_combine": 9}
+    for agg, rtol in (("float32", STEP_RTOL), ("bfloat16", GIN_BF16_RTOL)):
+        counts = first_step(
+            g, head, tuple(dataclasses.replace(h, agg_dtype=agg) for h in hts),
+            f"GIN {agg} aggregation", model="gin", hidden=GIN_HIDDEN,
+            rtol=rtol)
+        require(counts == per_step, "one GIN step launches 9 hot slab and 9 "
+                "residual kernels (layer 1 has no backward aggregation)")
+    res, counts = train(g, head, hts, epochs=20, dry=5, model="gin",
+                        hidden=GIN_HIDDEN)
+    steps = 25
+    log(f"  trained {steps} steps: loss {res['losses'][0]:.5f} -> "
+        f"{res['losses'][-1]:.5f}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    require(counts == {k: v * steps for k, v in per_step.items()},
+            "hot and residual kernels launch exactly 9 times per step")
+    recs["slab_matmul"].launches = counts["slab_matmul"]
+    recs["residual_combine"].launches = counts["residual_combine"]
+    log(f"  gin_epoch_ms {res['epoch_ms']:.4f} (20 timed epochs after 5 dry)")
+    busy = profile_steps(g, head, hts, "gin", GIN_HIDDEN)
+    if busy:
+        log(f"  device idle share of gin_epoch_ms: "
+            f"{1 - busy / res['epoch_ms']:.3f} (profiled busy time against "
+            "the unprofiled step)")
+    else:
+        log("  device busy time not measured: the profiler saw no device "
+            "activity")
+    return res["epoch_ms"]
+
+
+def phase6(layouts, rm, recs) -> None:
+    log("phase 6: GCN 96 -> 16 -> 22 on the row-major layouts")
+    g, fixed, _ = layouts[1]
+    hts = rm["fixed"]
+    first_step(g, fixed, hts, "row-major diag 512 + hot 512")
+    _, counts = train(g, fixed, hts, epochs=3, dry=0)
+    log(f"  row-major diag 512 + hot 512, 3 steps: launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    require(counts == {**NO_LAUNCHES, "fused_slab_matmul": 12,
+                       "residual_combine": (
+                           12 if fixed.hybrid_graph.num_res_slots else 0)},
+            "both slab tiers run as one fused launch per aggregation")
+    recs["fused_slab_matmul"].launches = counts["fused_slab_matmul"]
+    g10, small, _ = layouts[2]
+    hts = rm["small"]
+    first_step(g10, small, hts, "row-major 10k power-law")
+    _, counts = train(g10, small, hts, epochs=3, dry=0)
+    log(f"  row-major 10k power-law (diag 4096, residual not covering), 3 "
+        f"steps: launches {counts}")
+    require(counts == {**NO_LAUNCHES, "slab_matmul": 12,
+                       "residual_combine": 12},
             "diag-4096 and residual kernels launch 4 times per step")
 
 
@@ -474,13 +790,18 @@ def main() -> int:
     exact_f32_matmul()
     phase1()
     layouts = build_layouts()
+    rm = rowmajor_tensors(layouts)
     recs = {n: Record(n) for n in spmm_cuda.KERNELS}
     phase2(layouts, recs)
+    phase2_rowmajor(layouts, rm, recs)
     epoch_ms = phase3(layouts, recs)
     phase4(layouts, recs)
+    gin_epoch_ms = phase5(layouts, rm, recs)
+    phase6(layouts, rm, recs)
     for rec in recs.values():
         require(rec.launches > 0, f"{rec.name} launched on its path")
-    log(f"done: epoch_ms {epoch_ms:.4f} on {smi}")
+    log(f"done: epoch_ms {epoch_ms:.4f} (GCN, transposed), gin_epoch_ms "
+        f"{gin_epoch_ms:.4f} (GIN, row-major) on {smi}")
     print(smi)
     print(json.dumps({"kernels": [r.as_dict() for r in recs.values()]}))
     print(json.dumps({"ok": True, "device": {

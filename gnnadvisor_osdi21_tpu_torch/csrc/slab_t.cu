@@ -30,46 +30,12 @@
 // table in shared memory would read every row of it for every block of
 // threads, which costs more than the few rows a column's set bits need.
 // D wider than 32 is split over gridDim.y in tiles of 32 features.
+// The walk over a column's words is add_slab (slab.cuh), shared with the
+// row-major kernel (slab.cu).
 
-#include "common.cuh"
+#include "slab.cuh"
 
 namespace gnna {
-
-constexpr int kSlabThreads = 256;
-
-template <typename T>
-struct Slab {
-  const uint16_t* bits;  // [w16, R]; w16 == 0: slab absent
-  int w16;
-  const T* table;  // row-major [rows, Dp]
-  int block;       // 0: global table (hot); B: block-local table (diagonal)
-};
-
-template <typename T, int DT>
-__device__ __forceinline__ void add_slab(const Slab<T>& s, int r, int R,
-                                         int Dp, int f0, float* acc) {
-  if (s.w16 == 0) return;
-  const size_t first = s.block ? static_cast<size_t>(r / s.block) * s.block : 0;
-  const T* base = s.table + first * Dp + f0;
-  const uint16_t* col = s.bits + r;
-  for (int w0 = 0; w0 < s.w16; w0 += 8) {
-    uint32_t words[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      words[k] = (w0 + k < s.w16) ? __ldg(col + static_cast<size_t>(w0 + k) * R)
-                                  : 0u;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      uint32_t w = words[k];
-      while (w) {
-        const int b = __ffs(w) - 1;
-        w &= w - 1;
-        const size_t c = static_cast<size_t>(b) * s.w16 + w0 + k;
-        RowAdd<T, DT>::add(base + c * Dp, acc);
-      }
-    }
-  }
-}
 
 template <typename T, int DT>
 __global__ void __launch_bounds__(kSlabThreads)
@@ -88,24 +54,14 @@ __global__ void __launch_bounds__(kSlabThreads)
     if (f0 + j < D) out[static_cast<size_t>(f0 + j) * R + r] = acc[j];
 }
 
-// Tables are padded to Dp columns: Dp <= 32 is one feature tile of width
-// Dp, wider tables are split in tiles of 32.
-inline int feature_tile(int Dp) { return Dp <= 32 ? Dp : 32; }
-
 int launch(const Slab<float>& a32, const Slab<float>& b32, int R, int D,
            int Dp, int bf16, float* out, cudaStream_t stream) {
   const int dt = feature_tile(Dp);
   if (R <= 0 || Dp % dt) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((R + kSlabThreads - 1) / kSlabThreads, Dp / dt);
-  // The element type is a launch-time flag: reinterpret the table
-  // pointers for the bf16 instantiation.
 #define GNNA_SLAB_CALL(T, DTV)                                              \
   slab_kernel<T, DTV><<<grid, kSlabThreads, 0, stream>>>(                   \
-      Slab<T>{a32.bits, a32.w16, reinterpret_cast<const T*>(a32.table),     \
-              a32.block},                                                   \
-      Slab<T>{b32.bits, b32.w16, reinterpret_cast<const T*>(b32.table),     \
-              b32.block},                                                   \
-      R, D, Dp, out)
+      as_type<T>(a32), as_type<T>(b32), R, D, Dp, out)
   GNNA_DISPATCH(bf16, dt, GNNA_SLAB_CALL);
 #undef GNNA_SLAB_CALL
   return static_cast<int>(cudaGetLastError());

@@ -3,9 +3,10 @@
 The port of ``gnnadvisor_osdi21_tpu/models/gcn.py``: bias-free
 single-weight GCN layers with uniform ``±1/sqrt(out_dim)`` init
 (GCNConv, gnn_conv.py:80-98), forward
-``log_softmax(conv2(relu(conv1(x))))`` over the class axis of the
-transposed ``[classes, R]`` output.  The per-layer parameter switch
-(param.py:122-141) is a pair of layouts, one per layer.
+``log_softmax(conv2(relu(conv1(x))))`` over the class axis of the output,
+``[R, classes]`` or, on a transposed layout, ``[classes, R]``.  The
+per-layer parameter switch (param.py:122-141) is a pair of layouts, one
+per layer.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from torch import nn
 
 from gnnadvisor_osdi21_tpu_torch.device import resolve_device
-from gnnadvisor_osdi21_tpu_torch.ops.aggregate import gcn_conv
+from gnnadvisor_osdi21_tpu_torch.ops.aggregate import gcn_conv, is_transposed
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import HybridTensors
 
 
@@ -27,6 +28,22 @@ def _uniform_weight(
     stdv = 1.0 / float(np.sqrt(out_dim))
     w = torch.rand((in_dim, out_dim), generator=generator, dtype=torch.float32)
     return w * (2 * stdv) - stdv
+
+
+@torch.no_grad()
+def load_jax_params(
+    module: nn.Module, params: Mapping[str, np.ndarray], names: Sequence[str]
+) -> None:
+    """Copy the JAX model's weights (numpy arrays under ``names``) into the
+    module's parameters of the same names, with shape checks."""
+    for name in names:
+        p = getattr(module, name)
+        w = torch.tensor(np.asarray(params[name], dtype=np.float32))
+        if tuple(w.shape) != tuple(p.shape):
+            raise ValueError(
+                f"{name}: JAX weight {tuple(w.shape)} != {tuple(p.shape)}"
+            )
+        p.copy_(w)
 
 
 class GCN(nn.Module):
@@ -54,24 +71,17 @@ class GCN(nn.Module):
         )
 
     def forward(
-        self, x_t: torch.Tensor, hts: Sequence[HybridTensors]
+        self, x: torch.Tensor, hts: Sequence[HybridTensors]
     ) -> torch.Tensor:
-        """x_t [in, R] -> log-probabilities [classes, R].  ``hts`` =
-        (input-layer, hidden-layer) layouts; the same one twice is fine."""
-        h = torch.relu(gcn_conv(x_t, self.conv1, hts[0]))
+        """x [R, in] -> log-probabilities [R, classes] (transposed layouts:
+        [in, R] -> [classes, R]).  ``hts`` = (input-layer, hidden-layer)
+        layouts; the same one twice is fine."""
+        h = torch.relu(gcn_conv(x, self.conv1, hts[0]))
         out = gcn_conv(h, self.conv2, hts[-1])
-        return torch.log_softmax(out, dim=0)
+        return torch.log_softmax(out, dim=0 if is_transposed(hts[0]) else 1)
 
-    @torch.no_grad()
     def params_from_jax(self, params: Mapping[str, np.ndarray]) -> "GCN":
         """Carry weights across from the JAX model's ``{"conv1", "conv2"}``
         (as numpy arrays)."""
-        for name in ("conv1", "conv2"):
-            p = getattr(self, name)
-            w = torch.tensor(np.asarray(params[name], dtype=np.float32))
-            if tuple(w.shape) != tuple(p.shape):
-                raise ValueError(
-                    f"{name}: JAX weight {tuple(w.shape)} != {tuple(p.shape)}"
-                )
-            p.copy_(w)
+        load_jax_params(self, params, ("conv1", "conv2"))
         return self

@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
-One ``nvcc`` call compiles every source for Hopper (``sm_90a``) into a
-shared library with a plain C interface, named by the hash of the
-sources and flags and kept in ``_build/`` beside the package (the only
-place the port writes).  It is loaded with ``ctypes``: pointers and the
+One ``nvcc`` process per source, all started together, compiles the
+sources for Hopper (``sm_90a``), and one more links them into a shared
+library with a plain C interface, named by the hash of the sources and
+flags and kept in ``_build/`` beside the package (the only place the port
+writes).  It is loaded with ``ctypes``: pointers and the
 CUDA stream travel as ``c_void_p``, and every C entry point returns
 ``cudaGetLastError()`` after its launch, which ``check`` turns into an
 exception.  Nothing here runs at import; the first CUDA launch builds.
@@ -25,7 +26,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -41,6 +42,13 @@ SIGNATURES = {
     # mask_s, s16, ob, num_tiles, rows_t, block_ptr, num_rows, D, bf16,
     # out, stream
     "gnna_residual_combine_t": (_P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P),
+    # the row-major twins of the first two take the same arguments
+    "gnna_slab_matmul": (_P, _I, _I, _P, _I, _I, _I, _I, _P, _P),
+    "gnna_fused_slab_matmul": (
+        _P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P,
+    ),
+    # mask, W, num_tiles, S, rows, D, block_ptr, num_rows, bf16, out, stream
+    "gnna_residual_combine": (_P, _I, _I, _I, _P, _I, _P, _I, _I, _P, _P),
 }
 
 
@@ -80,16 +88,42 @@ def build() -> tuple[str, str]:
     if os.path.exists(so):
         return so, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
+    nvcc, tag = _nvcc(), f"{os.getpid()}"
+    objs = [
+        os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        for src in _sources()
+    ]
+    jobs = [
+        [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        for src, obj in zip(_sources(), objs)
+    ]
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for cmd in jobs
+    ]
+    outputs = [proc.communicate()[0] for proc in procs]  # waits for all
+    tmp = f"{so}.{tag}.tmp"
+    link = [nvcc, "-shared", "-o", tmp, *objs]
+    try:
+        for cmd, proc, out in zip(jobs, procs, outputs):
+            _check_nvcc(cmd, proc.returncode, out)
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _check_nvcc(link, proc.returncode, proc.stdout + proc.stderr)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
-    return so, proc.stdout + proc.stderr
+    return so, "".join(outputs)
+
+
+def _check_nvcc(cmd: list[str], returncode: int, output: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {returncode}:\n{' '.join(cmd)}\n"
+            f"{output}"
+        )
 
 
 @functools.cache

@@ -1,10 +1,12 @@
 """Aggregation ops with the reference's backward, on the hybrid layout.
 
-The port of ``gnnadvisor_osdi21_tpu/ops/aggregate.py:167-244``.
+The port of ``gnnadvisor_osdi21_tpu/ops/aggregate.py:167-283``.
 ``aggregate`` is a ``torch.autograd.Function`` whose backward applies the
 same forward aggregation to the incoming gradient: exact for undirected
 graphs, the reference's backward structure (gnn_conv.py:23-27).  Features
-are transposed ``[D, R]`` throughout.
+are transposed ``[D, R]`` or row-major ``[R, D]``, as the layout's
+``transposed`` says (``is_transposed``); the layers orient their GEMMs to
+match.
 """
 
 from __future__ import annotations
@@ -30,14 +32,19 @@ class _Aggregate(torch.autograd.Function):
 
 
 def aggregate(x: torch.Tensor, ht: HybridTensors, norm: bool = False):
-    """out[:, s] = Σ_{d∈N(s)} w_sd · x[:, d]; w = deg[s]·deg[d] if ``norm``
-    else 1."""
+    """out[s] = Σ_{d∈N(s)} w_sd · x[d]; w = deg[s]·deg[d] if ``norm`` else
+    1."""
     return _Aggregate.apply(x, ht, norm)
 
 
 def sag(x: torch.Tensor, ht: HybridTensors) -> torch.Tensor:
     """Scatter-And-Gather: plain neighbour sum (gnn_conv.py:7-28)."""
     return aggregate(x, ht, False)
+
+
+def is_transposed(ht: HybridTensors) -> bool:
+    """True when the layout keeps features transposed ``[D, R]``."""
+    return bool(ht.transposed)
 
 
 def _gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -60,7 +67,24 @@ def exact_f32_matmul() -> None:
 
 
 def gcn_conv(x: torch.Tensor, weight: torch.Tensor, ht: HybridTensors):
-    """GCN layer Agg(W^T @ X_t) with deg[s]·deg[d] weighting
-    (gnn_conv.py:31-78).  Autograd through the GEMM and ``aggregate``
-    gives the reference's backward: dX = W @ Agg(g), dW = X @ Agg(g)^T."""
-    return aggregate(_gemm(weight.t(), x), ht, True)
+    """GCN layer Agg(X @ W) with deg[s]·deg[d] weighting (gnn_conv.py:31-78),
+    Agg(W^T @ X_t) when transposed.  Autograd through the GEMM and
+    ``aggregate`` gives the reference's backward: dX = Agg(g) @ W^T,
+    dW = X^T @ Agg(g)."""
+    h = _gemm(weight.t(), x) if is_transposed(ht) else _gemm(x, weight)
+    return aggregate(h, ht, True)
+
+
+def gin_conv(
+    x: torch.Tensor, weight: torch.Tensor, ht: HybridTensors,
+    epsilon: float = 0.5,
+):
+    """GIN layer (ε · Agg(X)) @ W: no normalization, no self term
+    (gnn_conv.py:101-126), W^T @ (ε · Agg(X_t)) when transposed.  Autograd
+    through ``aggregate`` and the GEMM gives the reference's backward
+    (aggregate.py:262-283): dW = X_agg^T @ g from the saved X_agg, and
+    dX = ε · Agg(g @ W^T)."""
+    x_agg = epsilon * aggregate(x, ht, False)
+    if is_transposed(ht):
+        return _gemm(weight.t(), x_agg)
+    return _gemm(x_agg, weight)

@@ -1,14 +1,16 @@
-"""Hybrid diagonal/hot/residual aggregation on torch tensors, transposed
-layout ([D, R], graph rows on the minor axis).
+"""Hybrid diagonal/hot/residual aggregation on torch tensors, in either
+feature layout: transposed ``[D, R]`` (graph rows on the minor axis) or
+row-major ``[R, D]``, as ``HybridTensors.transposed`` says.
 
-The port of ``gnnadvisor_osdi21_tpu/ops/hybrid_agg.py``:
+The port of ``gnnadvisor_osdi21_tpu/ops/hybrid_agg.py``, per layout
+(``*_t`` kernels when transposed, their row-major twins otherwise):
 
-- diagonal tier: ``spmm_cuda.slab_matmul_t`` with the block-local wiring,
-- hot tier: ``spmm_cuda.slab_matmul_t`` against the gathered
-  ``x[:, hot_ids]`` table,
-- both at once: ``spmm_cuda.fused_slab_matmul_t``,
+- diagonal tier: ``spmm_cuda.slab_matmul[_t]`` with the block-local wiring,
+- hot tier: ``spmm_cuda.slab_matmul[_t]`` against the gathered hot-node
+  table,
+- both at once: ``spmm_cuda.fused_slab_matmul[_t]``,
 - residual tier: one or two ``index_select`` gathers (XLA ops outside the
-  kernel in the JAX package too) and ``spmm_cuda.residual_combine_t``.
+  kernel in the JAX package too) and ``spmm_cuda.residual_combine[_t]``.
 
 Every reduction is deterministic; there are no atomics.  All arrays live
 in the padded row space [num_rows]; the loss masks padding rows out.
@@ -34,12 +36,12 @@ AGG_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @dataclasses.dataclass(frozen=True)
 class HybridTensors:
     """The layout's tensors on one device, with the JAX ``HybridTensors``
-    fields, always in the transposed layout.  Differences: ``res_mask`` (the
-    row-major path's mask) is not kept, ``res_block_ptr`` holds each output
-    block's tile range for the residual kernel, and the TPU kernel geometry
-    (``block_rows``, ``feature_tile``), ``gemm_dtype`` and ``transposed``
-    are gone: the kernels choose their own geometry, GEMMs run in f32, and
-    the row-major path is not ported (ROADMAP.md item A.2)."""
+    fields.  Only the residual mask that the layout's kernels read is on
+    the device: ``res_mask`` when row-major, ``res_mask_s`` when
+    ``transposed``.  Differences: ``res_block_ptr`` holds each output
+    block's tile range for the residual kernels, and the TPU kernel
+    geometry (``block_rows``, ``feature_tile``) and ``gemm_dtype`` are
+    gone: the kernels choose their own geometry, and GEMMs run in f32."""
 
     degrees: torch.Tensor  # [R] f32
     row_mask: torch.Tensor  # [R] f32
@@ -48,6 +50,7 @@ class HybridTensors:
     hot_ids: Optional[torch.Tensor]  # [K] int64 or None
     res_gather: Optional[torch.Tensor]  # [Ud] int64 unique dst rows (stage 1)
     res_dst: Optional[torch.Tensor]  # [M_pad] int64 (stage 2, or full rows)
+    res_mask: Optional[torch.Tensor]  # [res_ob/32, M_pad] uint32 (row-major)
     res_mask_s: Optional[torch.Tensor]  # [res_tile/16, T*res_ob] uint16
     res_t2b: Optional[torch.Tensor]  # [T] int32 tile -> out block, sorted
     res_block_ptr: Optional[torch.Tensor]  # [num_rows/res_ob + 1] int32
@@ -58,6 +61,7 @@ class HybridTensors:
     res_tile: int = 128
     res_ob: int = 256
     agg_dtype: str = "float32"
+    transposed: bool = True
     res_covers_all: bool = False
 
     @property
@@ -70,8 +74,10 @@ def build_hybrid_tensors(
     device=None,
     agg_dtype: str = "float32",
     agg_feature_dim: int | None = None,
+    transposed: bool = True,
 ) -> HybridTensors:
-    """Move a layout onto ``device`` (None: the card).
+    """Move a layout onto ``device`` (None: the card), for the transposed
+    kernels or, with ``transposed=False``, the row-major ones.
 
     ``agg_feature_dim`` is the width this layer's aggregation runs at; it
     picks the residual gather per layer: a single gather from full x
@@ -99,7 +105,10 @@ def build_hybrid_tensors(
         hot_bits=put(hg.hot_bits) if hg.hot_k else None,
         hot_ids=put(hg.hot_ids, torch.int64) if hg.hot_k else None,
         **residual_gather(hg, dev, agg_feature_dim),
-        res_mask_s=put(hg.res_mask_s) if has_res else None,
+        # only the mask the chosen kernels read (the other is 77 MB at
+        # amazon0505 scale): hybrid_agg.py:110-114 in the JAX package
+        res_mask=put(hg.res_mask) if has_res and not transposed else None,
+        res_mask_s=put(hg.res_mask_s) if has_res and transposed else None,
         res_t2b=put(hg.res_t2b) if has_res else None,
         res_block_ptr=put(block_ptr) if has_res else None,
         num_rows=hg.num_rows,
@@ -109,7 +118,31 @@ def build_hybrid_tensors(
         res_tile=hg.res_tile,
         res_ob=hg.res_ob,
         agg_dtype=agg_dtype,
+        transposed=transposed,
         res_covers_all=hg.res_covers_all,
+    )
+
+
+def build_layer_tensors(
+    hg: HybridGraph,
+    agg_dims: tuple[int, int],
+    device=None,
+    agg_dtype: str = "float32",
+    transposed: bool = True,
+) -> tuple[HybridTensors, HybridTensors]:
+    """The (input-layer, hidden-layer) tensors of one layout, for layers
+    that aggregate at widths ``agg_dims``: both layers share the device
+    arrays, and differ in their residual gather only where the two widths
+    straddle the single-stage limit (``single_stage``), as in the JAX
+    decider (tuner/decider.py:349-382)."""
+    ht_in = build_hybrid_tensors(
+        hg, device=device, agg_dtype=agg_dtype, agg_feature_dim=agg_dims[0],
+        transposed=transposed,
+    )
+    if single_stage(hg, agg_dims[0]) == single_stage(hg, agg_dims[1]):
+        return ht_in, ht_in
+    return ht_in, dataclasses.replace(
+        ht_in, **residual_gather(hg, device, agg_dims[1])
     )
 
 
@@ -181,21 +214,64 @@ def residual_tier_t(src_t: torch.Tensor, ht: HybridTensors) -> torch.Tensor:
     )
 
 
+def _tiers_rowmajor(x: torch.Tensor, ht: HybridTensors) -> torch.Tensor:
+    """Sum of the tiers ([R, D] in and out, no degree scaling); both slab
+    tiers run as one fused launch."""
+    out = None
+    if ht.diag_b and ht.hot_k:
+        x_hot = x.index_select(0, ht.hot_ids)
+        out = spmm_cuda.fused_slab_matmul(
+            ht.diag_bits, ht.hot_bits, x, x_hot, ht.diag_b
+        )
+    else:
+        if ht.diag_b:
+            out = spmm_cuda.slab_matmul(
+                ht.diag_bits, x, table_block_rows=ht.diag_b
+            )
+        if ht.hot_k:
+            x_hot = x.index_select(0, ht.hot_ids)
+            h = spmm_cuda.slab_matmul(ht.hot_bits, x_hot)
+            out = h if out is None else out + h
+    if ht.res_dst is not None:
+        r = residual_tier(x, ht)
+        out = r if out is None else out + r
+    if out is None:
+        out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    return out
+
+
+def residual_tier(src: torch.Tensor, ht: HybridTensors) -> torch.Tensor:
+    """Row-major residual tier over the gather source ``src [table, D]``
+    (the JAX package's ``_residual_aggregate``, hybrid_agg.py:231-285).
+    The combine zeroes the blocks no tile visits, as ``residual_tier_t``'s
+    does."""
+    if ht.res_gather is None:
+        rows = src.index_select(0, ht.res_dst)  # [M_pad, D]
+    else:
+        compact = src.index_select(0, ht.res_gather)  # [Ud, D]
+        rows = compact.index_select(0, ht.res_dst)  # [M_pad, D]
+    return spmm_cuda.residual_combine(
+        rows, ht.res_mask, ht.res_t2b, ht.res_block_ptr, ht.num_rows,
+        ht.res_ob,
+    )
+
+
 def hybrid_aggregate(
     x: torch.Tensor, ht: HybridTensors, norm: bool
 ) -> torch.Tensor:
-    """out[:, s] = Σ_{d∈N(s)} w_sd · x[:, d] over the three-tier layout,
-    x and out transposed ``[D, R]``.
+    """out[s] = Σ_{d∈N(s)} w_sd · x[d] over the three-tier layout, x and
+    out transposed ``[D, R]`` when ``ht.transposed``, else row-major
+    ``[R, D]``.
 
     GCN weighting (``norm``): pre-scale x by sqrt-degree and post-scale
     the output, both dense, so no tier touches per-edge weights
     (deg[s]·deg[d]·x[d] = deg[s]·(deg·x)[d])."""
     out_dtype = x.dtype
+    deg = ht.degrees[None, :] if ht.transposed else ht.degrees[:, None]
+    tiers = _tiers_transposed if ht.transposed else _tiers_rowmajor
     if norm:
-        x = x * ht.degrees[None, :].to(x.dtype)
-    out = _tiers_transposed(
-        x.to(AGG_DTYPES[ht.agg_dtype]).contiguous(), ht
-    )
+        x = x * deg.to(x.dtype)
+    out = tiers(x.to(AGG_DTYPES[ht.agg_dtype]).contiguous(), ht)
     if norm:
-        out = out * ht.degrees[None, :]
+        out = out * deg
     return out.to(out_dtype)

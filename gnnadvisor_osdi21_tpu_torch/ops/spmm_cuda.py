@@ -1,28 +1,33 @@
-"""The hybrid layout's three transposed kernels, their plain versions and
-their launch counts.
+"""The hybrid layout's six kernels, their plain versions and their launch
+counts.
 
 Each kernel has:
 
 - a plain PyTorch version (``*_plain``): an explicit unpack of the bits to
   a 0/1 matrix and an f32 product, the same arithmetic as the JAX
-  package's reference branches (ops/hybrid_agg.py:189-207, 269-285).  The
-  CPU tests use it, and chip_smoke.py holds the kernel against it on the
-  card;
+  package's reference branches (ops/hybrid_agg.py:180-285).  The CPU tests
+  use it, and chip_smoke.py holds the kernel against it on the card;
 - a wrapper that checks device, dtype, shape and contiguity, runs the
   plain version for CPU tensors only, and for CUDA tensors launches the
   hand-written kernel in ``csrc/`` or raises;
 - a launch count in ``launches``, raised by one each time the wrapper
   launches its kernel and nowhere else.
 
-TPU kernels replaced (gnnadvisor_osdi21_tpu/ops/spmm_pallas.py):
-``slab_matmul_t`` (:469) -> csrc/slab_t.cu, ``fused_slab_matmul_t``
-(:556) -> csrc/slab_t.cu, ``residual_combine_t`` (:649) ->
-csrc/residual_t.cu.
+TPU kernels replaced (gnnadvisor_osdi21_tpu/ops/spmm_pallas.py), features
+transposed ``[D, R]``: ``slab_matmul_t`` (:469) -> csrc/slab_t.cu,
+``fused_slab_matmul_t`` (:556) -> csrc/slab_t.cu, ``residual_combine_t``
+(:649) -> csrc/residual_t.cu; features row-major ``[R, D]``:
+``slab_matmul`` (:143, with its ``hot_slab_matmul`` and
+``diag_slab_matmul`` wirings) -> csrc/slab.cu, ``fused_slab_matmul``
+(:259) -> csrc/slab.cu, ``residual_combine`` (:354) -> csrc/residual.cu.
 
 Bit layout: a slab is uint16 ``[K/16, R]`` with column j in word
-``j % (K/16)`` at bit ``j // (K/16)``; a residual mask is uint16
-``[S/16, T·OB]`` with slot s of tile i and out row o in word ``s % S16``,
-bit ``s // S16``, lane ``i·OB + o``.  Accumulation is f32 throughout.
+``j % (K/16)`` at bit ``j // (K/16)`` (both orientations); a transposed
+residual mask is uint16 ``[S/16, T·OB]`` with slot s of tile i and out row
+o in word ``s % S16``, bit ``s // S16``, lane ``i·OB + o``; a row-major
+residual mask is uint32 ``[OB/32, M_pad]`` with slot m and out row o of
+its block in word ``o % (OB/32)``, bit ``o // (OB/32)``.  Accumulation is
+f32 throughout.
 """
 
 from __future__ import annotations
@@ -31,7 +36,10 @@ import torch
 
 from gnnadvisor_osdi21_tpu_torch.ops import _build
 
-KERNELS = ("slab_matmul_t", "fused_slab_matmul_t", "residual_combine_t")
+KERNELS = (
+    "slab_matmul_t", "fused_slab_matmul_t", "residual_combine_t",
+    "slab_matmul", "fused_slab_matmul", "residual_combine",
+)
 # kernel name -> launches since the last reset_launches()
 launches = dict.fromkeys(KERNELS, 0)
 
@@ -72,6 +80,11 @@ def _check_features(name: str, x: torch.Tensor) -> None:
                          f"got {x.dtype} {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_index(name: str, v: torch.Tensor) -> None:
+    if v.dtype != torch.int32 or v.dim() != 1 or not v.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D int32 tensor")
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -165,12 +178,14 @@ def _table_width(d: int) -> int:
     return _round_up(d, 8) if d <= 32 else _round_up(d, 32)
 
 
-def _row_table(x_t: torch.Tensor, width: int) -> torch.Tensor:
-    """[D, T] -> row-major [T, width], zero-padded: one set bit then reads
-    one contiguous row."""
-    d, t = x_t.shape
-    table = x_t.new_zeros((t, width))
-    table[:, :d] = x_t.t()
+def _row_table(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x [T, D] as a contiguous row-major table of ``width`` columns: x
+    itself when it already is one, else a zero-padded copy, so one set bit
+    reads one 16-byte-aligned row."""
+    if x.shape[1] == width and x.is_contiguous():
+        return x
+    table = x.new_zeros((x.shape[0], width))
+    table[:, : x.shape[1]] = x
     return table
 
 
@@ -204,7 +219,7 @@ def slab_matmul_t(
 def _slab_matmul_t_cuda(bits_t, x_t, block: int) -> torch.Tensor:
     d, r = x_t.shape[0], bits_t.shape[1]
     width = _table_width(d)
-    table = _row_table(x_t, width)
+    table = _row_table(x_t.t(), width)
     out = torch.empty((d, r), dtype=torch.float32, device=x_t.device)
     with torch.cuda.device(x_t.device):
         rc = _build.library().gnna_slab_matmul_t(
@@ -249,8 +264,8 @@ def fused_slab_matmul_t(
 def _fused_slab_matmul_t_cuda(diag_bits_t, hot_bits_t, x_t, x_hot_t, diag_b):
     d, r = x_t.shape[0], diag_bits_t.shape[1]
     width = _table_width(d)
-    diag_table = _row_table(x_t, width)
-    hot_table = _row_table(x_hot_t, width)
+    diag_table = _row_table(x_t.t(), width)
+    hot_table = _row_table(x_hot_t.t(), width)
     out = torch.empty((d, r), dtype=torch.float32, device=x_t.device)
     with torch.cuda.device(x_t.device):
         rc = _build.library().gnna_fused_slab_matmul_t(
@@ -277,9 +292,8 @@ def residual_combine_t(
     ``t2b``'s runs).  Blocks with no tile come out as zeros."""
     s = _check_bits("mask_s", mask_s)
     _check_features("rows_t", rows_t)
-    for name, v in (("t2b", t2b), ("block_ptr", block_ptr)):
-        if v.dtype != torch.int32 or v.dim() != 1 or not v.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 1-D int32 tensor")
+    _check_index("t2b", t2b)
+    _check_index("block_ptr", block_ptr)
     t = t2b.shape[0]
     if (
         res_ob <= 0 or num_rows % res_ob or mask_s.shape[1] != t * res_ob
@@ -312,4 +326,204 @@ def _residual_combine_t_cuda(rows_t, mask_s, block_ptr, num_rows, res_ob):
         )
     _build.check("residual_combine_t", rc)
     launches["residual_combine_t"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Row-major twins: features [R, D], the same slabs, an out-row-major uint32
+# residual mask.
+# ---------------------------------------------------------------------------
+
+
+def unpack_mask32(mask: torch.Tensor) -> torch.Tensor:
+    """uint32 ``[OB/32, M]`` out-row-major words -> f32 0/1 ``[OB, M]``: row
+    o is word ``o % (OB/32)``, bit ``o // (OB/32)``."""
+    w = mask.shape[0]
+    o = torch.arange(w * 32, device=mask.device)
+    # an arithmetic shift keeps bit k of the word at bit 0
+    words = mask.view(torch.int32)
+    shift = (o // w).to(torch.int32)[:, None]
+    return ((words[o % w] >> shift) & 1).to(torch.float32)
+
+
+def slab_matmul_plain(
+    bits_t: torch.Tensor, x: torch.Tensor, table_block_rows: int | None = None
+) -> torch.Tensor:
+    """out[R, D] f32 = unpack(bits_t)^T @ x; hot wiring (global [K, D]
+    table) when ``table_block_rows`` is None, else the diagonal wiring (row
+    block i reads ``x[i·B:(i+1)·B]``)."""
+    a = unpack_bits(bits_t)  # [K, R]
+    xf = x.to(torch.float32)
+    if table_block_rows is None:
+        return a.t() @ xf
+    k, r = a.shape
+    nb, d = r // k, xf.shape[1]
+    return torch.einsum(
+        "cnr,ncd->nrd", a.reshape(k, nb, k), xf.reshape(nb, k, d)
+    ).reshape(r, d)
+
+
+def fused_slab_matmul_plain(
+    diag_bits_t: torch.Tensor, hot_bits_t: torch.Tensor, x: torch.Tensor,
+    x_hot: torch.Tensor, diag_b: int,
+) -> torch.Tensor:
+    """Diagonal plus hot tier in one call: out[R, D] f32."""
+    return (
+        slab_matmul_plain(diag_bits_t, x, table_block_rows=diag_b)
+        + slab_matmul_plain(hot_bits_t, x_hot)
+    )
+
+
+def residual_combine_plain(
+    rows: torch.Tensor, res_mask: torch.Tensor, t2b: torch.Tensor,
+    num_rows: int, res_ob: int,
+) -> torch.Tensor:
+    """out[num_rows, D] f32: every tile's unpacked [OB, S] mask @ its rows,
+    summed into the tile's output block; blocks no tile visits are 0."""
+    m_pad, d = rows.shape
+    t = t2b.shape[0]
+    s = m_pad // t
+    n_blocks = num_rows // res_ob
+    a = unpack_mask32(res_mask).reshape(res_ob, t, s)
+    chunks = torch.einsum(
+        "ots,tsd->tod", a, rows.to(torch.float32).reshape(t, s, d)
+    ).reshape(t, res_ob * d)
+    onehot = (
+        t2b.to(torch.int64)[None, :]
+        == torch.arange(n_blocks, device=t2b.device)[:, None]
+    ).to(torch.float32)
+    return (onehot @ chunks).reshape(num_rows, d)
+
+
+def slab_matmul(
+    bits_t: torch.Tensor, x: torch.Tensor, table_block_rows: int | None = None
+) -> torch.Tensor:
+    """out[R, D] f32 = unpack(bits_t)^T @ x (global or block-local table).
+
+    ``bits_t`` uint16 [K/16, R]; ``x`` [K, D] (hot) or [R, D] (diagonal,
+    ``table_block_rows == K``), float32 or bfloat16."""
+    k = _check_bits("bits_t", bits_t)
+    _check_features("x", x)
+    r = bits_t.shape[1]
+    if table_block_rows is None:
+        if x.shape[0] != k:
+            raise ValueError(f"hot table rows {x.shape[0]} != slab K {k}")
+    elif table_block_rows != k or x.shape[0] != r or r % k:
+        raise ValueError(
+            f"diag block {table_block_rows}: slab K {k}, x rows "
+            f"{x.shape[0]}, slab rows {r} (must be K, R, a multiple of K)"
+        )
+    if _on_cpu(bits_t, x):
+        return slab_matmul_plain(bits_t, x, table_block_rows)
+    return _slab_matmul_cuda(bits_t, x, table_block_rows or 0)
+
+
+def _slab_matmul_cuda(bits_t, x, block: int) -> torch.Tensor:
+    r, d = bits_t.shape[1], x.shape[1]
+    width = _table_width(d)
+    table = _row_table(x, width)
+    out = torch.empty((r, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _build.library().gnna_slab_matmul(
+            bits_t.data_ptr(), bits_t.shape[0], block, table.data_ptr(), r, d,
+            width, int(x.dtype == torch.bfloat16), out.data_ptr(),
+            _stream(x.device),
+        )
+    _build.check("slab_matmul", rc)
+    launches["slab_matmul"] += 1
+    return out
+
+
+def fused_slab_matmul(
+    diag_bits_t: torch.Tensor, hot_bits_t: torch.Tensor, x: torch.Tensor,
+    x_hot: torch.Tensor, diag_b: int,
+) -> torch.Tensor:
+    """out[R, D] = blockdiag(diag)^T @ x + hot^T @ x_hot, one row pass."""
+    b = _check_bits("diag_bits_t", diag_bits_t)
+    k = _check_bits("hot_bits_t", hot_bits_t)
+    _check_features("x", x)
+    _check_features("x_hot", x_hot)
+    r = diag_bits_t.shape[1]
+    if (
+        b != diag_b or hot_bits_t.shape[1] != r or x.shape[0] != r
+        or r % b or x_hot.shape[0] != k or x_hot.shape[1] != x.shape[1]
+        or x_hot.dtype != x.dtype
+    ):
+        raise ValueError(
+            f"fused slabs: diag K {b} (diag_b {diag_b}), hot K {k}, rows "
+            f"{r}/{hot_bits_t.shape[1]}, x {tuple(x.shape)} {x.dtype}, "
+            f"x_hot {tuple(x_hot.shape)} {x_hot.dtype}"
+        )
+    if _on_cpu(diag_bits_t, hot_bits_t, x, x_hot):
+        return fused_slab_matmul_plain(diag_bits_t, hot_bits_t, x, x_hot, diag_b)
+    return _fused_slab_matmul_cuda(diag_bits_t, hot_bits_t, x, x_hot, diag_b)
+
+
+def _fused_slab_matmul_cuda(diag_bits_t, hot_bits_t, x, x_hot, diag_b):
+    r, d = diag_bits_t.shape[1], x.shape[1]
+    width = _table_width(d)
+    diag_table = _row_table(x, width)
+    hot_table = _row_table(x_hot, width)
+    out = torch.empty((r, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _build.library().gnna_fused_slab_matmul(
+            diag_bits_t.data_ptr(), diag_bits_t.shape[0], diag_b,
+            diag_table.data_ptr(), hot_bits_t.data_ptr(), hot_bits_t.shape[0],
+            hot_table.data_ptr(), r, d, width,
+            int(x.dtype == torch.bfloat16), out.data_ptr(), _stream(x.device),
+        )
+    _build.check("fused_slab_matmul", rc)
+    launches["fused_slab_matmul"] += 1
+    return out
+
+
+def residual_combine(
+    rows: torch.Tensor, res_mask: torch.Tensor, t2b: torch.Tensor,
+    block_ptr: torch.Tensor, num_rows: int, res_ob: int,
+) -> torch.Tensor:
+    """out[num_rows, D] f32: residual-tier combine, features row-major.
+
+    ``rows`` [T·S, D] gathered slot rows; ``res_mask`` uint32
+    [OB/32, T·S]; ``t2b`` int32 [T] tile -> out block, sorted ascending;
+    ``block_ptr`` int32 [num_rows/OB + 1], the tile range of each block.
+    Blocks with no tile come out as zeros."""
+    _check_features("rows", rows)
+    if res_mask.dtype != torch.uint32 or res_mask.dim() != 2:
+        raise ValueError(f"res_mask must be a 2-D uint32 tensor, got "
+                         f"{res_mask.dtype} {tuple(res_mask.shape)}")
+    if not res_mask.is_contiguous():
+        raise ValueError("res_mask must be contiguous")
+    _check_index("t2b", t2b)
+    _check_index("block_ptr", block_ptr)
+    t, m_pad = t2b.shape[0], rows.shape[0]
+    if (
+        res_ob <= 0 or num_rows % res_ob or t == 0 or m_pad % t
+        or tuple(res_mask.shape) != (res_ob // 32, m_pad) or res_ob % 32
+        or block_ptr.shape[0] != num_rows // res_ob + 1
+    ):
+        raise ValueError(
+            f"residual stream: {t} tiles, rows {tuple(rows.shape)}, mask "
+            f"{tuple(res_mask.shape)}, block_ptr {tuple(block_ptr.shape)}, "
+            f"num_rows {num_rows}, res_ob {res_ob}"
+        )
+    if _on_cpu(rows, res_mask, t2b, block_ptr):
+        return residual_combine_plain(rows, res_mask, t2b, num_rows, res_ob)
+    if m_pad // t > MAX_RES_TILE:
+        raise ValueError(f"residual tile of {m_pad // t} slots exceeds the "
+                         f"kernel's {MAX_RES_TILE}")
+    return _residual_combine_cuda(rows, res_mask, block_ptr, t, num_rows)
+
+
+def _residual_combine_cuda(rows, res_mask, block_ptr, t, num_rows):
+    m_pad, d = rows.shape
+    out = torch.empty((num_rows, d), dtype=torch.float32, device=rows.device)
+    with torch.cuda.device(rows.device):
+        rc = _build.library().gnna_residual_combine(
+            res_mask.data_ptr(), res_mask.shape[0], t, m_pad // t,
+            rows.data_ptr(), d, block_ptr.data_ptr(), num_rows,
+            int(rows.dtype == torch.bfloat16), out.data_ptr(),
+            _stream(rows.device),
+        )
+    _build.check("residual_combine", rc)
+    launches["residual_combine"] += 1
     return out

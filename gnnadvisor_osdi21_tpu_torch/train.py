@@ -8,8 +8,11 @@ The port of ``gnnadvisor_osdi21_tpu/train.py:34-55, 158-328``:
   padding rows are masked out;
 - a few dry-run epochs, then timed epochs fenced with CUDA events.
 
-CUDA graphs and checkpoint/resume are not ported yet (ROADMAP.md item
-A.6).
+Models: the 2-layer GCN and the 5-layer GIN, on a transposed or a
+row-major hybrid layout.  Not ported yet: the JAX package's whole-run
+``lax.scan`` and its chunked timing (whose analog here, CUDA-graph
+capture of the step, is ROADMAP.md item A.6), checkpoint/resume (item
+A.6), and the ELL, dense and COO layouts (item A.4).
 """
 
 from __future__ import annotations
@@ -21,19 +24,31 @@ import torch
 
 from gnnadvisor_osdi21_tpu_torch.device import resolve_device
 from gnnadvisor_osdi21_tpu_torch.models.gcn import GCN
-from gnnadvisor_osdi21_tpu_torch.ops.aggregate import exact_f32_matmul
+from gnnadvisor_osdi21_tpu_torch.models.gin import GIN
+from gnnadvisor_osdi21_tpu_torch.ops.aggregate import (
+    exact_f32_matmul, is_transposed,
+)
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import HybridTensors
+
+
+MODELS = {"gcn": GCN, "gin": GIN}
 
 
 def nll_loss(
     log_probs: torch.Tensor,
     labels: torch.Tensor,
     mask: torch.Tensor | None = None,
+    transposed: bool = True,
 ) -> torch.Tensor:
     """Mean negative log-likelihood (F.nll_loss, reduction='mean') of the
-    transposed ``[classes, N]`` log_probs over the rows where ``mask`` is
-    1."""
-    nll = -log_probs.gather(0, labels.to(torch.int64)[None, :])[0]
+    log_probs over the rows where ``mask`` is 1.  ``transposed``: log_probs
+    is ``[classes, N]`` (the port's default layout), else ``[N,
+    classes]``."""
+    labels = labels.to(torch.int64)
+    if transposed:
+        nll = -log_probs.gather(0, labels[None, :])[0]
+    else:
+        nll = -log_probs.gather(1, labels[:, None])[:, 0]
     if mask is None:
         return nll.mean()
     return (nll * mask).sum() / mask.sum()
@@ -43,10 +58,12 @@ def accuracy(
     log_probs: torch.Tensor,
     labels: torch.Tensor,
     mask: torch.Tensor | None = None,
+    transposed: bool = True,
 ) -> torch.Tensor:
-    """Classification accuracy of the transposed ``[classes, N]``
-    log_probs over the (optionally masked) rows."""
-    pred = log_probs.argmax(dim=0)
+    """Classification accuracy of the log_probs (``[classes, N]`` when
+    ``transposed``, else ``[N, classes]``) over the (optionally masked)
+    rows."""
+    pred = log_probs.argmax(dim=0 if transposed else 1)
     hit = (pred == labels.to(pred.dtype)).to(torch.float32)
     if mask is None:
         return hit.mean()
@@ -69,30 +86,32 @@ def train_and_time(
     device=None,
     init_params: Mapping[str, np.ndarray] | None = None,
 ) -> dict:
-    """Train ``dry_run`` + ``num_epochs`` full-graph steps; return the
-    losses of every step and ``epoch_ms``, the mean time of a timed epoch
-    between two CUDA events.  On the CPU (``device="cpu"``), or with no
-    timed epochs, nothing is timed and ``epoch_ms`` is None.
+    """Train ``model`` ("gcn" or "gin") for ``dry_run`` + ``num_epochs``
+    full-graph steps; return the losses of every step and ``epoch_ms``, the
+    mean time of a timed epoch between two CUDA events.  On the CPU
+    (``device="cpu"``), or with no timed epochs, nothing is timed and
+    ``epoch_ms`` is None.
 
     ``x`` [R, D] row-major features and ``y`` [R] labels in the layout's
     padded row space; ``mask`` [R] (1 on real rows).  ``init_params``
-    carries JAX weights across (``GCN.params_from_jax``); otherwise the
+    carries JAX weights across (``params_from_jax``); otherwise the
     weights come from a ``torch.Generator`` seeded with ``seed``."""
-    if model != "gcn":
-        raise NotImplementedError(
-            f"model {model!r} is not ported yet (ROADMAP.md item A.1)"
-        )
+    if model not in MODELS:
+        raise ValueError(f"unknown model: {model}")
     dev = resolve_device(device)
     if dev.type == "cuda":
         exact_f32_matmul()
-    net = GCN(
+    net = MODELS[model](
         x.shape[1], hidden, num_classes,
         generator=torch.Generator().manual_seed(seed), device=dev,
     )
     if init_params is not None:
         net.params_from_jax(init_params)
-    # the transposed layout wants x as [D, R]: one transpose at setup
-    x_t = torch.as_tensor(x, dtype=torch.float32).t().contiguous().to(dev)
+    transposed = is_transposed(hts[0])
+    x = torch.as_tensor(x, dtype=torch.float32)
+    if transposed:
+        x = x.t()  # the transposed layout wants [D, R]: once, at setup
+    x = x.contiguous().to(dev)
     labels = torch.as_tensor(y).to(dev, torch.int64)
     if mask is not None:
         mask = torch.as_tensor(mask, dtype=torch.float32).to(dev)
@@ -100,7 +119,7 @@ def train_and_time(
 
     def step() -> torch.Tensor:
         opt.zero_grad(set_to_none=True)
-        loss = nll_loss(net(x_t, hts), labels, mask)
+        loss = nll_loss(net(x, hts), labels, mask, transposed)
         loss.backward()
         opt.step()
         return loss.detach()

@@ -9,9 +9,11 @@ decider's with its probe off.  The JAX decider's VMEM model
 (decider.py:49-56, 200-224) sized TPU grid steps; the CUDA kernels size
 their own launches, so it is gone.
 
-Not ported yet, and refused with ``NotImplementedError``: the ELL, dense
-and COO methods (ROADMAP.md item A.4), the row-major layout
-``transposed=False`` (item A.2), reordering (item A.3) and GIN (item A.1).
+Models are the 2-layer GCN and the 5-layer GIN; the layout is transposed
+(``transposed=None`` or True, the JAX default for the hybrid method) or
+row-major (``transposed=False``).  Not ported yet, and refused with
+``NotImplementedError``: the ELL, dense and COO methods (ROADMAP.md item
+A.4), manual mode (which defaults to ELL) and reordering (item A.3).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import numpy as np
 from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import build_hybrid, choose_tiers
 from gnnadvisor_osdi21_tpu_torch.graphs.loader import GraphCSR
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import (
-    HybridTensors, build_hybrid_tensors, residual_gather, single_stage,
+    HybridTensors, build_layer_tensors,
 )
 
 DENSE_MAX_NODES = 4096  # the JAX decider picks "dense" up to this size
@@ -56,15 +58,8 @@ class InputProperty:
         agg_dtype: str = "bfloat16",
         transposed: Optional[bool] = None,
     ):
-        if model != "gcn":
-            raise NotImplementedError(
-                f"model {model!r} is not ported yet (ROADMAP.md item A.1)"
-            )
-        if transposed is False:
-            raise NotImplementedError(
-                "the row-major layout (transposed=False) is not ported yet "
-                "(ROADMAP.md item A.2)"
-            )
+        if model not in ("gcn", "gin"):
+            raise ValueError(f"unknown model: {model}")
         if enable_reorder:
             raise NotImplementedError(
                 "reordering is not ported yet (ROADMAP.md item A.3)"
@@ -78,9 +73,11 @@ class InputProperty:
         # user-fixed tier values (None = auto)
         self._user_hot_k = hot_k
         self._user_diag_b = diag_b
+        self.model = model
         self.manual_mode = manual_mode
         self.verbose = verbose
         self.agg_dtype = agg_dtype
+        self.transposed = transposed
         self.layer_input: Optional[LayerConfig] = None
         self.layer_hidden: Optional[LayerConfig] = None
         self.hybrid_graph = None  # set by build_tensors
@@ -128,8 +125,9 @@ class InputProperty:
     def build_tensors(self, device=None) -> tuple[HybridTensors, HybridTensors]:
         """Build the layout and put it on ``device`` (None: the card), once
         per layer's residual gather: GCN aggregates at the hidden width,
-        then at the class count, and each width may pick another gather
-        (``hybrid_agg.single_stage``)."""
+        then at the class count; GIN at the input width, then at the
+        hidden one (aggregation precedes its GEMM); and each width may pick
+        another gather (``hybrid_agg.single_stage``)."""
         if self.layer_input is None:
             raise RuntimeError("call decider() first")
         # the user's values, not the decider's: build_hybrid re-prices the
@@ -138,15 +136,14 @@ class InputProperty:
             self.graph, hot_k=self._user_hot_k, diag_b=self._user_diag_b
         )
         self.diag_b, self.hot_k = hg.diag_b, hg.hot_k
-        agg_dims = (self.hidden_dim, self.graph.num_classes)
+        return build_layer_tensors(
+            hg, self.agg_dims(), device=device, agg_dtype=self.agg_dtype,
+            transposed=self.transposed is not False,
+        )
 
-        ht_in = build_hybrid_tensors(
-            hg, device=device, agg_dtype=self.agg_dtype,
-            agg_feature_dim=agg_dims[0],
-        )
-        if single_stage(hg, agg_dims[0]) == single_stage(hg, agg_dims[1]):
-            return ht_in, ht_in
-        # the layers straddle the width limit: only the gather differs
-        return ht_in, dataclasses.replace(
-            ht_in, **residual_gather(hg, device, agg_dims[1])
-        )
+    def agg_dims(self) -> tuple[int, int]:
+        """The widths the input and hidden layers aggregate at
+        (tuner/decider.py:355-361 in the JAX package)."""
+        if self.model == "gin":
+            return self.input_dim, self.hidden_dim
+        return self.hidden_dim, self.graph.num_classes

@@ -81,8 +81,7 @@ def test_user_fixed_tiers_pass_through(skewed_graph):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(method="ell"), dict(transposed=False), dict(enable_reorder=True),
-    dict(model="gin"), dict(manual_mode=True),
+    dict(method="ell"), dict(enable_reorder=True), dict(manual_mode=True),
 ])
 def test_unported_options_name_the_roadmap(skewed_graph, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md item A"):

@@ -13,6 +13,7 @@ import torch
 from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import build_hybrid
 from gnnadvisor_osdi21_tpu_torch.graphs.loader import synthesize_graph
 from gnnadvisor_osdi21_tpu_torch.models.gcn import GCN
+from gnnadvisor_osdi21_tpu_torch.models.gin import GIN
 from gnnadvisor_osdi21_tpu_torch.ops import hybrid_agg, spmm_cuda
 from gnnadvisor_osdi21_tpu_torch.train import train_and_time
 from gnnadvisor_osdi21_tpu_torch.tuner.decider import InputProperty
@@ -30,6 +31,7 @@ PORT_MODULES = [
     "gnnadvisor_osdi21_tpu_torch.ops.aggregate",
     "gnnadvisor_osdi21_tpu_torch.models",
     "gnnadvisor_osdi21_tpu_torch.models.gcn",
+    "gnnadvisor_osdi21_tpu_torch.models.gin",
     "gnnadvisor_osdi21_tpu_torch.train",
     "chip_smoke",
 ]
@@ -90,6 +92,8 @@ def test_entry_points_refuse_cpu_fallback(no_card, skewed_graph):
         hybrid_agg.build_hybrid_tensors(hg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GCN(8, 4, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GIN(8, 4, 3)
     hts = (hybrid_agg.build_hybrid_tensors(hg, device="cpu"),) * 2
     x = np.zeros((hg.num_rows, 8), np.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -126,16 +130,26 @@ def test_cuda_tensors_never_reach_the_plain_version(kernel, monkeypatch):
     bits = _cuda_typed(torch.zeros((4, 512), dtype=torch.uint16))
     x_hot = _cuda_typed(torch.zeros((8, 64)))
     x = _cuda_typed(torch.zeros((8, 512)))
+    t2b = _cuda_typed(torch.tensor([0, 1], dtype=torch.int32))
+    ptr = _cuda_typed(torch.tensor([0, 1, 2], dtype=torch.int32))
     if kernel == "slab_matmul_t":
         got = spmm_cuda.slab_matmul_t(bits, x_hot)
     elif kernel == "fused_slab_matmul_t":
         got = spmm_cuda.fused_slab_matmul_t(bits, bits, x, x_hot, 64)
-    else:
+    elif kernel == "residual_combine_t":
         mask = _cuda_typed(torch.zeros((2, 2 * 256), dtype=torch.uint16))
         rows = _cuda_typed(torch.zeros((8, 2 * 32)))
-        t2b = _cuda_typed(torch.tensor([0, 1], dtype=torch.int32))
-        ptr = _cuda_typed(torch.tensor([0, 1, 2], dtype=torch.int32))
         got = spmm_cuda.residual_combine_t(rows, mask, t2b, ptr, 512, 256)
+    elif kernel == "slab_matmul":
+        got = spmm_cuda.slab_matmul(bits, _cuda_typed(torch.zeros((64, 8))))
+    elif kernel == "fused_slab_matmul":
+        got = spmm_cuda.fused_slab_matmul(
+            bits, bits, _cuda_typed(torch.zeros((512, 8))),
+            _cuda_typed(torch.zeros((64, 8))), 64)
+    else:
+        mask = _cuda_typed(torch.zeros((8, 2 * 32), dtype=torch.uint32))
+        rows = _cuda_typed(torch.zeros((2 * 32, 8)))
+        got = spmm_cuda.residual_combine(rows, mask, t2b, ptr, 512, 256)
     assert got == "launched" and launched == [kernel]
 
 
