@@ -25,11 +25,22 @@ PyTorch version on the card:
   the first step against the plain path at f32 and at bf16 aggregation,
   launch counts, ``gin_epoch_ms`` over timed epochs, and the device time
   of three steps by kernel (``torch.profiler``);
-- phase 6: GCN on the row-major fused and 10k layouts for a few steps.
+- phase 6: GCN on the row-major fused and 10k layouts for a few steps;
+- phase 7: the probe kernels (``ops/probe_cuda.py``) against their plain
+  versions at every dtype pair, block size and K of their path, at a
+  reduced and at the full R, with their time, bound, plain time and
+  library times;
+- phase 8: the probe scripts ``bench.fixprobe`` and ``bench.stepprobe``,
+  run unmodified in this process (their launches are the probe kernels'
+  path);
+- phase 9: the measured-probe tier autotune at amazon0505 scale, and its
+  cache hit on a second build.
 
-Every check raises on failure, so the exit code is non-zero.  The last
-two lines are a JSON ``kernels`` record and the ``{"ok": true, ...}``
-line.  Without a CUDA card it exits 1 before printing either.
+The layouts of phases 2-6 are built with the probe off, so that they are
+the cost model's.  Every check raises on failure, so the exit code is
+non-zero.  The last two lines are a JSON ``kernels`` record and the
+``{"ok": true, ...}`` line.  Without a CUDA card it exits 1 before
+printing either.
 """
 
 from __future__ import annotations
@@ -38,6 +49,8 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -46,8 +59,11 @@ import time
 import numpy as np
 import torch
 
+from gnnadvisor_osdi21_tpu_torch.bench import fixprobe, stepprobe
+from gnnadvisor_osdi21_tpu_torch.graphs import hybrid
+from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import pack_slab_bits
 from gnnadvisor_osdi21_tpu_torch.graphs.loader import synthesize_graph
-from gnnadvisor_osdi21_tpu_torch.ops import _build, spmm_cuda
+from gnnadvisor_osdi21_tpu_torch.ops import _build, probe_cuda, spmm_cuda
 from gnnadvisor_osdi21_tpu_torch.ops.aggregate import exact_f32_matmul
 from gnnadvisor_osdi21_tpu_torch.train import MODELS, nll_loss, train_and_time
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import build_layer_tensors
@@ -57,6 +73,7 @@ from gnnadvisor_osdi21_tpu_torch.tuner.decider import InputProperty
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12  # tensor cores, dense bf16
 # kernel vs plain version on the card: both sum exact f32 products in f32,
 # in different orders; sums of up to a few hundred terms stay well inside
 ATOL, RTOL = 1e-4, 1e-5
@@ -77,6 +94,9 @@ DIMS = (16, 22, 5)
 ROW_DIMS = (96, 64, 22, 16, 5)  # the row-major kernels' widths
 DTYPES = (torch.float32, torch.bfloat16)
 GIN_HIDDEN = 64
+# timed epochs of phases 3 and 5: 8 windows of 8 epochs, fit against 8
+# windows of 1 (train_and_time's protocol), after 5 dry-run epochs
+TIMED_EPOCHS = 64
 DEVICE = "cuda"  # the card; every tensor of the checks is put there
 
 SOURCES = {
@@ -86,6 +106,9 @@ SOURCES = {
     "slab_matmul": "gnnadvisor_osdi21_tpu_torch/csrc/slab.cu",
     "fused_slab_matmul": "gnnadvisor_osdi21_tpu_torch/csrc/slab.cu",
     "residual_combine": "gnnadvisor_osdi21_tpu_torch/csrc/residual.cu",
+    "bit_slab_t": "gnnadvisor_osdi21_tpu_torch/csrc/probe_slab.cu",
+    "i8_slab_t": "gnnadvisor_osdi21_tpu_torch/csrc/probe_slab.cu",
+    "dense_slab": "gnnadvisor_osdi21_tpu_torch/csrc/probe_slab.cu",
 }
 REPLACES = {
     "slab_matmul_t": "gnnadvisor_osdi21_tpu/ops/spmm_pallas.py:469",
@@ -94,7 +117,17 @@ REPLACES = {
     "slab_matmul": "gnnadvisor_osdi21_tpu/ops/spmm_pallas.py:143",
     "fused_slab_matmul": "gnnadvisor_osdi21_tpu/ops/spmm_pallas.py:259",
     "residual_combine": "gnnadvisor_osdi21_tpu/ops/spmm_pallas.py:354",
+    "bit_slab_t": "gnnadvisor_osdi21_tpu/bench/fixprobe.py:63",
+    "i8_slab_t": "gnnadvisor_osdi21_tpu/bench/fixprobe.py:94",
+    "dense_slab": "gnnadvisor_osdi21_tpu/bench/stepprobe.py:69",
 }
+# the amazon0505-scale graph's (edge count, fingerprint) by numpy version:
+# the generator draws one edge fewer under numpy 2.3.5 than under 2.0.2,
+# the version the CPU parity tests ran with (the generator stays as it is)
+EXPECTED_GRAPH = {"2.0.2": (3_395_067, "5d8a7ec0"),
+                  "2.3.5": (3_395_066, "12727dd5")}
+PROBE_R = 409_600  # the probe scripts' graph rows
+PROBE_R_SMALL = 8_192  # the reduced R of the probe kernels' checks
 
 T0 = time.perf_counter()
 
@@ -176,10 +209,12 @@ class Record:
         }
 
 
-def bound(rec: Record, nbytes: int, adds: int) -> None:
-    """Least time: bytes over the memory rate vs f32 adds over the f32 rate."""
+def bound(rec: Record, nbytes: int, adds: int,
+          ops_per_s: float = F32_OPS_PER_S) -> None:
+    """Least time: bytes over the memory rate vs the operations over their
+    rate (f32 adds on the CUDA cores unless ``ops_per_s`` says otherwise)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = adds / F32_OPS_PER_S * 1e3
+    t_ops = adds / ops_per_s * 1e3
     rec.bound_ms = max(t_bytes, t_ops)
     rec.bound_by = "bytes" if t_bytes >= t_ops else "operations"
 
@@ -208,6 +243,7 @@ def row_features(n: int, d: int, dtype, gen: torch.Generator) -> torch.Tensor:
 
 # every kernel's launch count at 0: a path's expected counts start here
 NO_LAUNCHES = dict.fromkeys(spmm_cuda.KERNELS, 0)
+
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +280,15 @@ def build_layouts():
     start = time.perf_counter()
     g = synthesize_graph(410236, 4878874, num_features=96, num_classes=22,
                          kind="web", seed=0)
-    head = InputProperty(g, hidden_dim=16).decider()
+    want = EXPECTED_GRAPH.get(np.__version__)
+    got = (g.nnz, hybrid.graph_fingerprint(g))
+    log(f"graph amazon0505-scale: numpy {np.__version__}, {got[0]} edges, "
+        f"fingerprint {got[1]} (expected "
+        f"{want if want else 'unknown for this numpy'})")
+    require(want is None or got == want,
+            f"the amazon0505-scale graph is {want} (edges, fingerprint) "
+            f"under numpy {np.__version__}")
+    head = InputProperty(g, hidden_dim=16, probe=False).decider()
     hts = head.build_tensors()
     hg = head.hybrid_graph
     log(f"layout amazon0505-scale (auto): {g.num_nodes} nodes, {g.nnz} edges, "
@@ -253,7 +297,8 @@ def build_layouts():
         f"tiles={len(hg.res_t2b)} covers_all={hg.res_covers_all} "
         f"rows={hg.num_rows} ({time.perf_counter() - start:.1f} s)")
     start = time.perf_counter()
-    fixed = InputProperty(g, hidden_dim=16, diag_b=512, hot_k=512).decider()
+    fixed = InputProperty(g, hidden_dim=16, diag_b=512, hot_k=512,
+                          probe=False).decider()
     fts = fixed.build_tensors()
     fg = fixed.hybrid_graph
     log(f"layout amazon0505-scale (diag 512, hot 512): res_ob={fg.res_ob} "
@@ -262,7 +307,7 @@ def build_layouts():
     start = time.perf_counter()
     g10 = synthesize_graph(10000, 120000, num_features=96, num_classes=22,
                            kind="powerlaw")
-    small = InputProperty(g10, hidden_dim=16).decider()
+    small = InputProperty(g10, hidden_dim=16, probe=False).decider()
     sts = small.build_tensors()
     sg = small.hybrid_graph
     log(f"layout 10k power-law (auto): diag_b={sg.diag_b} hot_k={sg.hot_k} "
@@ -640,18 +685,29 @@ def train(graph, prop, hts, epochs: int, dry: int, model: str = "gcn",
                          device=DEVICE)
     counts = dict(spmm_cuda.launches)
     losses = res["losses"]
-    require(len(losses) == epochs + dry and all(map(math.isfinite, losses)),
-            "every loss is finite")
+    require(len(losses) == res["step"] >= epochs + dry
+            and all(map(math.isfinite, losses)), "every loss is finite")
     require(losses[-1] < losses[0], "training lowers the loss")
     return res, counts
+
+
+def log_windows(name: str, res: dict) -> None:
+    """The timing protocol's result: the fit and its windows' spread."""
+    per = [w / res["chunk"] for w in res["window_ms"]]
+    log(f"  {name} {res['epoch_ms']:.4f} (two-point fit: {len(per)} windows "
+        f"of {res['chunk']} epochs against "
+        f"{len(res['window2_ms'])} of {res['chunk2']}; exec_fixed_ms "
+        f"{res['exec_fixed_ms']:.4f}); per-epoch ms of the {res['chunk']}-"
+        f"epoch windows: median {statistics.median(per):.4f}, min "
+        f"{min(per):.4f}, max {max(per):.4f}")
 
 
 def phase3(layouts, recs) -> float:
     g, head, hts = layouts[0]
     log("phase 3: GCN 96 -> 16 -> 22 on the amazon0505-scale auto layout")
     first_step(g, head, hts, "auto layout")
-    res, counts = train(g, head, hts, epochs=20, dry=5)
-    steps = 25
+    res, counts = train(g, head, hts, epochs=TIMED_EPOCHS, dry=5)
+    steps = res["step"]
     log(f"  trained {steps} steps: loss {res['losses'][0]:.5f} -> "
         f"{res['losses'][-1]:.5f}; launches {counts}")
     require(counts == {**NO_LAUNCHES, "slab_matmul_t": 4 * steps,
@@ -659,7 +715,7 @@ def phase3(layouts, recs) -> float:
             "hot and residual kernels launch exactly 4 times per step")
     recs["slab_matmul_t"].launches = counts["slab_matmul_t"]
     recs["residual_combine_t"].launches = counts["residual_combine_t"]
-    log(f"  epoch_ms {res['epoch_ms']:.4f} (20 timed epochs after 5 dry)")
+    log_windows("epoch_ms", res)
     return res["epoch_ms"]
 
 
@@ -667,7 +723,7 @@ def phase4(layouts, recs) -> None:
     log("phase 4: the other wirings")
     g, fixed, fts = layouts[1]
     first_step(g, fixed, fts, "diag 512 + hot 512")
-    _, counts = train(g, fixed, fts, epochs=3, dry=0)
+    _, counts = train(g, fixed, fts, epochs=0, dry=3)
     log(f"  diag 512 + hot 512, 3 steps: launches {counts}")
     require(counts == {**NO_LAUNCHES, "fused_slab_matmul_t": 12,
                        "residual_combine_t": (
@@ -676,7 +732,7 @@ def phase4(layouts, recs) -> None:
     recs["fused_slab_matmul_t"].launches = counts["fused_slab_matmul_t"]
     g10, small, sts = layouts[2]
     first_step(g10, small, sts, "10k power-law")
-    _, counts = train(g10, small, sts, epochs=3, dry=0)
+    _, counts = train(g10, small, sts, epochs=0, dry=3)
     log(f"  10k power-law (diag 4096, residual not covering), 3 steps: "
         f"launches {counts}")
     require(counts == {**NO_LAUNCHES, "slab_matmul_t": 12,
@@ -735,9 +791,9 @@ def phase5(layouts, rm, recs) -> float:
             rtol=rtol)
         require(counts == per_step, "one GIN step launches 9 hot slab and 9 "
                 "residual kernels (layer 1 has no backward aggregation)")
-    res, counts = train(g, head, hts, epochs=20, dry=5, model="gin",
+    res, counts = train(g, head, hts, epochs=TIMED_EPOCHS, dry=5, model="gin",
                         hidden=GIN_HIDDEN)
-    steps = 25
+    steps = res["step"]
     log(f"  trained {steps} steps: loss {res['losses'][0]:.5f} -> "
         f"{res['losses'][-1]:.5f}; launches "
         f"{ {k: v for k, v in counts.items() if v} }")
@@ -745,7 +801,7 @@ def phase5(layouts, rm, recs) -> float:
             "hot and residual kernels launch exactly 9 times per step")
     recs["slab_matmul"].launches = counts["slab_matmul"]
     recs["residual_combine"].launches = counts["residual_combine"]
-    log(f"  gin_epoch_ms {res['epoch_ms']:.4f} (20 timed epochs after 5 dry)")
+    log_windows("gin_epoch_ms", res)
     busy = profile_steps(g, head, hts, "gin", GIN_HIDDEN)
     if busy:
         log(f"  device idle share of gin_epoch_ms: "
@@ -762,7 +818,7 @@ def phase6(layouts, rm, recs) -> None:
     g, fixed, _ = layouts[1]
     hts = rm["fixed"]
     first_step(g, fixed, hts, "row-major diag 512 + hot 512")
-    _, counts = train(g, fixed, hts, epochs=3, dry=0)
+    _, counts = train(g, fixed, hts, epochs=0, dry=3)
     log(f"  row-major diag 512 + hot 512, 3 steps: launches "
         f"{ {k: v for k, v in counts.items() if v} }")
     require(counts == {**NO_LAUNCHES, "fused_slab_matmul": 12,
@@ -773,12 +829,210 @@ def phase6(layouts, rm, recs) -> None:
     g10, small, _ = layouts[2]
     hts = rm["small"]
     first_step(g10, small, hts, "row-major 10k power-law")
-    _, counts = train(g10, small, hts, epochs=3, dry=0)
+    _, counts = train(g10, small, hts, epochs=0, dry=3)
     log(f"  row-major 10k power-law (diag 4096, residual not covering), 3 "
         f"steps: launches {counts}")
     require(counts == {**NO_LAUNCHES, "slab_matmul": 12,
                        "residual_combine": 12},
             "diag-4096 and residual kernels launch 4 times per step")
+
+
+def probe_slab(k: int, r: int, seed: int):
+    """The probes' slab: 8·R random (row, column) edges over [R, K], as the
+    legacy uint32 bit slab [K/32, R] and as the int8 0/1 [K, R], on the
+    card; also the edges, deduplicated, for the CSR yardstick."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, r, size=8 * r)
+    cols = rng.integers(0, k, size=8 * r)
+    bits = torch.from_numpy(
+        np.ascontiguousarray(pack_slab_bits(rows, cols, r, k).T)).to(DEVICE)
+    a8 = torch.zeros((k, r), dtype=torch.int8, device=DEVICE)
+    a8[torch.from_numpy(cols).to(DEVICE), torch.from_numpy(rows).to(DEVICE)] = 1
+    key = np.unique(rows.astype(np.int64) * k + cols)
+    return bits, a8, (key // k, key % k)
+
+
+def phase7(recs) -> None:
+    """Each probe kernel against its plain version: every dtype pair,
+    block size and K of its path at a reduced R, the path's largest K at
+    the full R; timed at the full R with its bound, its plain version and
+    the library calls."""
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    bf16 = torch.bfloat16
+    log("phase 7: the probe kernels against their plain versions on the card")
+    bit_blocks = (128, 256, 512)  # fixprobe's br 2048, 4096, 8192
+    i8_blocks = (128, 256)  # br 2048, 4096
+    dense_blocks = (32, 64, 128)  # stepprobe's br 512, 1024, 2048
+    checks = [(PROBE_R_SMALL, k) for k in (128, 512, 1024, 2048, 4096)]
+    checks.append((PROBE_R, 4096))
+    for r, k in checks:
+        bits, a8, _ = probe_slab(k, r, seed=k)
+        x_t = features(16, k, bf16, gen)
+        want = probe_cuda.bit_slab_t_plain(bits, x_t)
+        for bm in bit_blocks:
+            compare(recs["bit_slab_t"], f"bit_slab_t R={r} K={k} block {bm}",
+                    lambda: probe_cuda.bit_slab_t(bits, x_t, bm), lambda: want)
+        want = probe_cuda.i8_slab_t_plain(a8, x_t)
+        for bm in i8_blocks:
+            compare(recs["i8_slab_t"], f"i8_slab_t R={r} K={k} block {bm}",
+                    lambda: probe_cuda.i8_slab_t(a8, x_t, bm), lambda: want)
+        del bits, want
+        if k not in (512, 1024, 2048) and r == PROBE_R_SMALL:
+            continue
+        k_dense = min(k, 2048)  # stepprobe's K reaches 2048
+        a8 = a8[:k_dense].contiguous()
+        for sdt, xdt in probe_cuda.DENSE_DTYPES:
+            a = a8.to(sdt)
+            x = row_features(k_dense, 16, xdt, gen)
+            want = probe_cuda.dense_slab_plain(a, x)
+            for bm in dense_blocks:
+                compare(recs["dense_slab"],
+                        f"dense_slab R={r} K={k_dense} {sdt}/{xdt} block {bm}",
+                        lambda: probe_cuda.dense_slab(a, x, bm), lambda: want)
+        del a8, a, want
+
+    # --- timed at the full R: each kernel at its path's widest K ---------
+    def yardsticks(label, kernel, plain, sparse, dense_bf16, nbytes, flops,
+                   rate, rec=None):
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain)
+        sparse_ms = time_ms(sparse)
+        mm_ms = time_ms(dense_bf16) if dense_bf16 is not None else None
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / rate * 1e3
+        if rec is not None:
+            rec.ms, rec.plain_ms, rec.library_ms = ms, plain_ms, sparse_ms
+            bound(rec, nbytes, flops, rate)
+        mm = f", torch.matmul (bf16 dense) {mm_ms:.4f} ms" if mm_ms else ""
+        log(f"  {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.sparse.mm (f32 CSR) {sparse_ms:.4f} ms{mm}, bound "
+            f"{max(t_bytes, t_ops):.4f} ms "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+
+    r = PROBE_R
+    for k in (2048, 4096):
+        bits, a8, (er, ec) = probe_slab(k, r, seed=100 + k)
+        x_t = features(16, k, bf16, gen)
+        xf = x_t.float().t().contiguous()
+        a_csr = csr(er, ec, (r, k))
+        out_bytes = 16 * r * 4
+        flops = 2 * 16 * k * r
+        yardsticks(
+            f"bit_slab_t R={r} K={k} block 128",
+            lambda: probe_cuda.bit_slab_t(bits, x_t, 128),
+            lambda: probe_cuda.bit_slab_t_plain(bits, x_t),
+            lambda: torch.sparse.mm(a_csr, xf), None,
+            bits.numel() * 4 + x_t.numel() * 2 + out_bytes, flops,
+            BF16_TC_OPS_PER_S, recs["bit_slab_t"] if k == 2048 else None)
+        del bits
+        a16 = a8.to(bf16)
+        yardsticks(
+            f"i8_slab_t R={r} K={k} block 128",
+            lambda: probe_cuda.i8_slab_t(a8, x_t, 128),
+            lambda: probe_cuda.i8_slab_t_plain(a8, x_t),
+            lambda: torch.sparse.mm(a_csr, xf), lambda: x_t @ a16,
+            a8.numel() + x_t.numel() * 2 + out_bytes, flops,
+            BF16_TC_OPS_PER_S, recs["i8_slab_t"] if k == 4096 else None)
+        if k == 2048:
+            for sdt, xdt in probe_cuda.DENSE_DTYPES:
+                a = a8.to(sdt)
+                x = row_features(k, 16, xdt, gen)
+                xb, x32 = x.to(bf16), x.float()
+                rate = (F32_OPS_PER_S if xdt == torch.float32
+                        else BF16_TC_OPS_PER_S)
+                yardsticks(
+                    f"dense_slab R={r} K={k} {sdt}/{xdt} block 128",
+                    lambda: probe_cuda.dense_slab(a, x, 128),
+                    lambda: probe_cuda.dense_slab_plain(a, x),
+                    lambda: torch.sparse.mm(a_csr, x32),
+                    lambda: a16.t() @ xb,
+                    a.numel() * a.element_size() + x.numel() * x.element_size()
+                    + out_bytes, flops, rate,
+                    recs["dense_slab"] if sdt == torch.int8
+                    and xdt == bf16 else None)
+                del a
+        del a8, a16, a_csr
+
+
+def phase8(recs) -> None:
+    """The probe scripts, unmodified: their kernel launches are the path
+    the probe kernels' counts come from."""
+    for name, script in (("fixprobe", fixprobe), ("stepprobe", stepprobe)):
+        log(f"phase 8: {name}.main([])")
+        spmm_cuda.reset_launches()
+        probe_cuda.reset_launches()
+        start = time.perf_counter()
+        require(script.main([]) == 0, f"{name} ran to its end")
+        counts = {k: v for k, v in {**spmm_cuda.launches,
+                                    **probe_cuda.launches}.items() if v}
+        log(f"  {name}: {time.perf_counter() - start:.1f} s; launches {counts}")
+        for kname, n in probe_cuda.launches.items():
+            if n:
+                recs[kname].launches += n
+
+
+def phase9(layouts) -> None:
+    """The measured-probe tier autotune at amazon0505 scale: the model's
+    top candidates, each one's probed ms, the verdict; then a second
+    build that must replay the verdict from the cache."""
+    g, head, _ = layouts[0]
+    base = head.hybrid_graph
+    log("phase 9: tier probe (InputProperty(probe=True)) at amazon0505 scale")
+    src = np.repeat(np.arange(g.num_nodes, dtype=np.int64),
+                    np.diff(np.asarray(g.row_pointers, dtype=np.int64)))
+    ranked = hybrid.rank_tiers(src, np.asarray(g.column_index, np.int64),
+                               g.num_nodes, res_ob=base.res_ob)
+    for cost, b, k in ranked[:hybrid.PROBE_TOP]:
+        log(f"  model candidate (diag_b {b}, hot_k {k}): {cost / 1e6:.4f} ms "
+            "modelled (TPU constants)")
+    probed = []
+    timer = hybrid._probe_spmm_time
+
+    def recording(hg, device):
+        sec = timer(hg, device)
+        probed.append((hg.diag_b, hg.hot_k, sec))
+        log(f"  probed (diag_b {hg.diag_b}, hot_k {hg.hot_k}): "
+            f"{sec * 1e3:.4f} ms per SpMM")
+        return sec
+
+    # an empty directory under the port's ignored cache directory
+    cache_dir = os.path.join(hybrid._DEFAULT_CACHE_DIR,
+                             f"chip_smoke-{os.getpid()}")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    saved_env = os.environ.get(hybrid.CACHE_DIR_ENV)
+    os.environ[hybrid.CACHE_DIR_ENV] = cache_dir
+    hybrid._probe_spmm_time = recording
+    try:
+        verdicts, n_probes = [], []
+        for attempt in ("first", "second"):
+            start = time.perf_counter()
+            n_before = len(probed)
+            prop = InputProperty(g, hidden_dim=16, probe=True).decider()
+            model_pick = (prop.diag_b, prop.hot_k)
+            prop.build_tensors()
+            hg = prop.hybrid_graph
+            verdicts.append((hg.diag_b, hg.hot_k))
+            n_probes.append(len(probed) - n_before)
+            log(f"  {attempt} build: model pick {model_pick}, verdict "
+                f"(diag_b {hg.diag_b}, hot_k {hg.hot_k}), {n_probes[-1]} "
+                f"probes, {time.perf_counter() - start:.1f} s")
+        require(n_probes[0] >= 2, "the first build probed its candidates")
+        require(n_probes[1] == 0,
+                "the second build replayed the cached verdict (no probe)")
+        require(verdicts[0] == verdicts[1], "the cache returns the verdict")
+    finally:
+        hybrid._probe_spmm_time = timer
+        if saved_env is None:
+            os.environ.pop(hybrid.CACHE_DIR_ENV, None)
+        else:
+            os.environ[hybrid.CACHE_DIR_ENV] = saved_env
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    best = min(probed, key=lambda p: p[2])
+    kept = verdicts[0] == (base.diag_b, base.hot_k)
+    log(f"  the model's pick (diag_b {base.diag_b}, hot_k {base.hot_k}) "
+        f"{'kept' if kept else 'overridden'}: fastest probed (diag_b "
+        f"{best[0]}, hot_k {best[1]}) {best[2] * 1e3:.4f} ms; a challenger "
+        f"must win by {hybrid.PROBE_MARGIN:.0%}")
 
 
 def main() -> int:
@@ -791,13 +1045,18 @@ def main() -> int:
     phase1()
     layouts = build_layouts()
     rm = rowmajor_tensors(layouts)
-    recs = {n: Record(n) for n in spmm_cuda.KERNELS}
+    recs = {n: Record(n) for n in spmm_cuda.KERNELS + probe_cuda.KERNELS}
     phase2(layouts, recs)
     phase2_rowmajor(layouts, rm, recs)
     epoch_ms = phase3(layouts, recs)
     phase4(layouts, recs)
     gin_epoch_ms = phase5(layouts, rm, recs)
     phase6(layouts, rm, recs)
+    for phase in (lambda: phase7(recs), lambda: phase8(recs),
+                  lambda: phase9(layouts)):
+        start = time.perf_counter()
+        phase()
+        log(f"  phase took {time.perf_counter() - start:.1f} s")
     for rec in recs.values():
         require(rec.launches > 0, f"{rec.name} launched on its path")
     log(f"done: epoch_ms {epoch_ms:.4f} (GCN, transposed), gin_epoch_ms "

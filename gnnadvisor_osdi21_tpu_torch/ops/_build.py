@@ -49,6 +49,13 @@ SIGNATURES = {
     ),
     # mask, W, num_tiles, S, rows, D, block_ptr, num_rows, bf16, out, stream
     "gnna_residual_combine": (_P, _I, _I, _I, _P, _I, _P, _I, _I, _P, _P),
+    # the probes' dense 0/1 slabs (csrc/probe_slab.cu):
+    # bits, w32, R, x_t, block_rows, out, stream
+    "gnna_bit_slab_t": (_P, _I, _I, _P, _I, _P, _P),
+    # a, K, R, x_t, block_rows, out, stream
+    "gnna_i8_slab_t": (_P, _I, _I, _P, _I, _P, _P),
+    # a, a_bf16, K, R, x, x_f32, block_rows, out, stream
+    "gnna_dense_slab": (_P, _I, _I, _I, _P, _I, _I, _P, _P),
 }
 
 

@@ -1,0 +1,201 @@
+"""The measurement probes' three dense 0/1 slab kernels, their plain
+versions and their launch counts.
+
+TPU kernels replaced (``gnnadvisor_osdi21_tpu/bench/``), all in
+``csrc/probe_slab.cu``:
+
+- ``_bit_t_kernel`` (fixprobe.py:63, wrapper ``bit_slab_t``):
+  ``out[16, R] = x_t @ unpack(bits)`` from the legacy uint32 transposed
+  bit slab ``[K/32, R]``, column j in word ``j % (K/32)`` at bit
+  ``j // (K/32)`` (the transpose of ``graphs.hybrid.pack_slab_bits``);
+- ``_i8_t_kernel`` (fixprobe.py:94, ``i8_slab_t``): ``out[16, R] = x_t @ A``
+  with a dense int8 0/1 ``A [K, R]`` cast to x's dtype;
+- ``_dense_kernel`` (stepprobe.py:69, ``dense_slab``): ``out[R, 16] = Aᵀ x``
+  with a dense int8 or bf16 0/1 ``A [K, R]`` and bf16 or f32 ``x [K, 16]``.
+
+As in ``spmm_cuda``: each wrapper checks device, dtype, shape and
+contiguity, runs the plain version for CPU tensors only, and for CUDA
+tensors launches its kernel (bf16 on the tensor cores, f32 on the CUDA
+cores) or raises; ``launches`` counts the kernel launches.  The kernels
+compute 16 features (one MMA tile): the probes' width.  ``block_rows`` is
+the graph rows one CUDA block of threads owns (32 to 512, a multiple of
+32); the probe scripts map the TPU's grid-step rows ``br`` to
+``br // 16``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gnnadvisor_osdi21_tpu_torch.ops import _build
+from gnnadvisor_osdi21_tpu_torch.ops.spmm_cuda import _on_cpu, _stream
+
+KERNELS = ("bit_slab_t", "i8_slab_t", "dense_slab")
+# kernel name -> launches since the last reset_launches()
+launches = dict.fromkeys(KERNELS, 0)
+
+FEATURES = 16  # the kernels' feature width
+K_STEP = 32  # slab columns per staged tile: K must be a multiple
+# the (slab, features) dtypes of dense_slab's path (stepprobe.py:104-105)
+DENSE_DTYPES = (
+    (torch.int8, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
+    (torch.int8, torch.float32),
+)
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def block_rows_for(br: int) -> int:
+    """CUDA block rows for a TPU grid step of ``br`` rows (the probes'
+    sweep points, 512 to 8192)."""
+    return br // 16
+
+
+def unpack_bits32(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 ``[K/32, N]`` bit-major words -> f32 0/1 ``[K, N]``: row j is
+    word ``j % (K/32)``, bit ``j // (K/32)``."""
+    w32 = bits.shape[0]
+    j = torch.arange(w32 * 32, device=bits.device)
+    # an arithmetic shift keeps bit k of the word at bit 0
+    words = bits.view(torch.int32)
+    shift = (j // w32).to(torch.int32)[:, None]
+    return ((words[j % w32] >> shift) & 1).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the 0/1 slab in f32 and one f32 product.
+# ---------------------------------------------------------------------------
+
+
+def bit_slab_t_plain(bits_t: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
+    """out[D, R] f32 = x_t @ unpack(bits_t)."""
+    return x_t.to(torch.float32) @ unpack_bits32(bits_t)
+
+
+def i8_slab_t_plain(a_t: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
+    """out[D, R] f32 = x_t @ a_t (a_t's values cast to f32: exact)."""
+    return x_t.to(torch.float32) @ a_t.to(torch.float32)
+
+
+def dense_slab_plain(a_t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """out[R, D] f32 = a_tᵀ @ x."""
+    return a_t.to(torch.float32).t() @ x.to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers.
+# ---------------------------------------------------------------------------
+
+
+def _check_2d(name: str, t: torch.Tensor, dtypes) -> None:
+    if t.dtype not in dtypes or t.dim() != 2:
+        raise ValueError(f"{name} must be a 2-D tensor of "
+                         f"{', '.join(map(str, dtypes))}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_launch(k: int, r: int, d: int, block_rows: int, *tensors) -> None:
+    """What the CUDA kernels take: 16 features, K a multiple of 32, R of 8,
+    16-byte-aligned operands, a block of 32 to 512 rows."""
+    if d != FEATURES or k % K_STEP or k == 0 or r % 8 or r == 0:
+        raise ValueError(f"the probe kernels take {FEATURES} features, K a "
+                         f"multiple of {K_STEP} and R of 8; got D={d}, "
+                         f"K={k}, R={r}")
+    if block_rows < 32 or block_rows > 512 or block_rows % 32:
+        raise ValueError(f"block_rows {block_rows} must be a multiple of 32 "
+                         "from 32 to 512")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("operands must be 16-byte aligned")
+
+
+def bit_slab_t(bits_t: torch.Tensor, x_t: torch.Tensor,
+               block_rows: int = 256) -> torch.Tensor:
+    """out[D, R] f32 = x_t @ unpack(bits_t); ``bits_t`` uint32 [K/32, R],
+    ``x_t`` bf16 [D, K]."""
+    _check_2d("bits_t", bits_t, (torch.uint32,))
+    _check_2d("x_t", x_t, (torch.bfloat16,))
+    k, r = bits_t.shape[0] * 32, bits_t.shape[1]
+    if x_t.shape[1] != k:
+        raise ValueError(f"x_t has {x_t.shape[1]} columns, the slab K {k}")
+    if _on_cpu(bits_t, x_t):
+        return bit_slab_t_plain(bits_t, x_t)
+    _check_launch(k, r, x_t.shape[0], block_rows, bits_t, x_t)
+    return _bit_slab_t_cuda(bits_t, x_t, block_rows)
+
+
+def _bit_slab_t_cuda(bits_t, x_t, block_rows: int) -> torch.Tensor:
+    r = bits_t.shape[1]
+    out = torch.empty((FEATURES, r), dtype=torch.float32, device=x_t.device)
+    with torch.cuda.device(x_t.device):
+        rc = _build.library().gnna_bit_slab_t(
+            bits_t.data_ptr(), bits_t.shape[0], r, x_t.data_ptr(),
+            block_rows, out.data_ptr(), _stream(x_t.device),
+        )
+    _build.check("bit_slab_t", rc)
+    launches["bit_slab_t"] += 1
+    return out
+
+
+def i8_slab_t(a_t: torch.Tensor, x_t: torch.Tensor,
+              block_rows: int = 256) -> torch.Tensor:
+    """out[D, R] f32 = x_t @ a_t; ``a_t`` int8 0/1 [K, R], ``x_t`` bf16
+    [D, K]."""
+    _check_2d("a_t", a_t, (torch.int8,))
+    _check_2d("x_t", x_t, (torch.bfloat16,))
+    k, r = a_t.shape
+    if x_t.shape[1] != k:
+        raise ValueError(f"x_t has {x_t.shape[1]} columns, the slab K {k}")
+    if _on_cpu(a_t, x_t):
+        return i8_slab_t_plain(a_t, x_t)
+    _check_launch(k, r, x_t.shape[0], block_rows, a_t, x_t)
+    return _i8_slab_t_cuda(a_t, x_t, block_rows)
+
+
+def _i8_slab_t_cuda(a_t, x_t, block_rows: int) -> torch.Tensor:
+    k, r = a_t.shape
+    out = torch.empty((FEATURES, r), dtype=torch.float32, device=x_t.device)
+    with torch.cuda.device(x_t.device):
+        rc = _build.library().gnna_i8_slab_t(
+            a_t.data_ptr(), k, r, x_t.data_ptr(), block_rows, out.data_ptr(),
+            _stream(x_t.device),
+        )
+    _build.check("i8_slab_t", rc)
+    launches["i8_slab_t"] += 1
+    return out
+
+
+def dense_slab(a_t: torch.Tensor, x: torch.Tensor,
+               block_rows: int = 64) -> torch.Tensor:
+    """out[R, D] f32 = a_tᵀ @ x; (``a_t`` [K, R], ``x`` [K, D]) dtypes one
+    of ``DENSE_DTYPES``."""
+    _check_2d("a_t", a_t, (torch.int8, torch.bfloat16))
+    _check_2d("x", x, (torch.bfloat16, torch.float32))
+    if (a_t.dtype, x.dtype) not in DENSE_DTYPES:
+        raise ValueError(f"slab {a_t.dtype} with features {x.dtype} is not "
+                         "a dtype pair of the probe")
+    k, r = a_t.shape
+    if x.shape[0] != k:
+        raise ValueError(f"x has {x.shape[0]} rows, the slab K {k}")
+    if _on_cpu(a_t, x):
+        return dense_slab_plain(a_t, x)
+    _check_launch(k, r, x.shape[1], block_rows, a_t, x)
+    return _dense_slab_cuda(a_t, x, block_rows)
+
+
+def _dense_slab_cuda(a_t, x, block_rows: int) -> torch.Tensor:
+    k, r = a_t.shape
+    out = torch.empty((r, FEATURES), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _build.library().gnna_dense_slab(
+            a_t.data_ptr(), int(a_t.dtype == torch.bfloat16), k, r,
+            x.data_ptr(), int(x.dtype == torch.float32), block_rows,
+            out.data_ptr(), _stream(x.device),
+        )
+    _build.check("dense_slab", rc)
+    launches["dense_slab"] += 1
+    return out

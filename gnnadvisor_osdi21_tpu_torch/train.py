@@ -6,17 +6,22 @@ The port of ``gnnadvisor_osdi21_tpu/train.py:34-55, 158-328``:
   which ``torch.optim.Adam`` computes the same way;
 - loss = masked NLL of the log-softmax outputs; the hybrid layout's
   padding rows are masked out;
-- a few dry-run epochs, then timed epochs fenced with CUDA events.
+- a few dry-run epochs, then the reference's scan-mode timing protocol
+  (train.py:205-283 there): windows of ``chunk`` epochs, each fenced by
+  two CUDA events, and a two-point marginal fit against windows of
+  ``chunk // 8`` epochs.
 
 Models: the 2-layer GCN and the 5-layer GIN, on a transposed or a
-row-major hybrid layout.  Not ported yet: the JAX package's whole-run
-``lax.scan`` and its chunked timing (whose analog here, CUDA-graph
-capture of the step, is ROADMAP.md item A.6), checkpoint/resume (item
-A.6), and the ELL, dense and COO layouts (item A.4).
+row-major hybrid layout.  Not ported yet: CUDA-graph capture of the step
+(the analog of the JAX package's whole-run ``lax.scan``) and
+checkpoint/resume (ROADMAP.md item A.6), and the ELL, dense and COO
+layouts (item A.4).
 """
 
 from __future__ import annotations
 
+import statistics
+import time
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -71,6 +76,9 @@ def accuracy(
     return (hit * m).sum() / m.sum().clamp(min=1.0)
 
 
+MIN_WINDOWS = 8  # timed windows of each size
+
+
 def train_and_time(
     model: str,
     hts: Sequence[HybridTensors],
@@ -86,16 +94,38 @@ def train_and_time(
     device=None,
     init_params: Mapping[str, np.ndarray] | None = None,
 ) -> dict:
-    """Train ``model`` ("gcn" or "gin") for ``dry_run`` + ``num_epochs``
-    full-graph steps; return the losses of every step and ``epoch_ms``, the
-    mean time of a timed epoch between two CUDA events.  On the CPU
-    (``device="cpu"``), or with no timed epochs, nothing is timed and
-    ``epoch_ms`` is None.
+    """Train ``model`` ("gcn" or "gin") full-graph and time its epochs
+    with the reference protocol.
+
+    ``dry_run`` warm-up epochs run first.  On the card, the timed epochs
+    then run in windows, one window being ``chunk`` epochs between two
+    CUDA events: ``chunk = max(1, num_epochs // 8)``, so that at least 8
+    windows cover ``num_epochs`` (the reference sizes its chunk from a TPU
+    execution limit that does not exist here).  ``n_exec =
+    max(8, ceil(num_epochs / chunk))`` windows of ``chunk`` epochs run,
+    then, when ``chunk >= 8``, ``n2 = max(8, min(16, n_exec))`` windows of
+    ``chunk2 = chunk // 8``.  With the medians ``med1`` and ``med2`` of
+    the two sets, ``epoch_ms`` is the slope ``(med1 - med2) / (chunk -
+    chunk2)`` and ``exec_fixed_ms`` the intercept, what every window pays
+    once; where the slope is not positive (noise inverting the fit), or
+    without the second set, ``epoch_ms`` is the mean over the ``chunk``
+    windows and ``exec_fixed_ms`` 0.  ``num_epochs`` in the result is the
+    count of timed epochs, ``n_exec·chunk``; the second set's epochs count
+    as warm-up in ``step``.
+
+    On the CPU (``device="cpu"``) nothing is timed: the ``dry_run +
+    num_epochs`` steps run and ``epoch_ms`` is None.
 
     ``x`` [R, D] row-major features and ``y`` [R] labels in the layout's
     padded row space; ``mask`` [R] (1 on real rows).  ``init_params``
     carries JAX weights across (``params_from_jax``); otherwise the
-    weights come from a ``torch.Generator`` seeded with ``seed``."""
+    weights come from a ``torch.Generator`` seeded with ``seed``.
+
+    Returns the reference's keys (``epoch_ms``, ``dispatch_ms`` = 0.0,
+    ``exec_fixed_ms``, ``warmup_s``, ``final_loss``, ``num_epochs``,
+    ``step``) and ``losses`` (every step's), ``dry_run``, ``model``,
+    ``chunk``, ``chunk2`` and ``window_ms`` / ``window2_ms`` (each
+    window's ms, empty off the card)."""
     if model not in MODELS:
         raise ValueError(f"unknown model: {model}")
     dev = resolve_device(device)
@@ -116,33 +146,92 @@ def train_and_time(
     if mask is not None:
         mask = torch.as_tensor(mask, dtype=torch.float32).to(dev)
     opt = torch.optim.Adam(net.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    losses: list[torch.Tensor] = []
 
-    def step() -> torch.Tensor:
+    def step() -> None:
         opt.zero_grad(set_to_none=True)
         loss = nll_loss(net(x, hts), labels, mask, transposed)
         loss.backward()
         opt.step()
-        return loss.detach()
+        losses.append(loss.detach())
 
-    losses = [step() for _ in range(dry_run)]
-    epoch_ms = None
-    if dev.type == "cuda" and num_epochs:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    for _ in range(dry_run):
+        step()
+    if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-        start.record()
-        losses += [step() for _ in range(num_epochs)]
-        end.record()
-        end.synchronize()
-        epoch_ms = start.elapsed_time(end) / num_epochs
+    warmup_s = time.perf_counter() - t0
+
+    epoch_ms, exec_fixed_ms = None, 0.0
+    chunk = chunk2 = 0
+    window_ms: list[float] = []
+    window2_ms: list[float] = []
+    if dev.type == "cuda" and num_epochs:
+        chunk, n_exec, chunk2, n2 = timing_plan(num_epochs)
+        window_ms = [_window_ms(step, chunk) for _ in range(n_exec)]
+        window2_ms = [_window_ms(step, chunk2) for _ in range(n2)]
+        epoch_ms, exec_fixed_ms = marginal_fit(
+            window_ms, window2_ms, chunk, chunk2
+        )
+        num_epochs = n_exec * chunk
     else:
-        losses += [step() for _ in range(num_epochs)]
+        for _ in range(num_epochs):
+            step()
     loss_values = torch.stack(losses).tolist() if losses else []
     return {
         "epoch_ms": epoch_ms,
-        "losses": loss_values,
+        "dispatch_ms": 0.0,
+        "exec_fixed_ms": exec_fixed_ms,
+        "warmup_s": warmup_s,
         "final_loss": loss_values[-1] if loss_values else None,
         "num_epochs": num_epochs,
+        "step": len(loss_values),
+        "losses": loss_values,
         "dry_run": dry_run,
         "model": net,
+        "chunk": chunk,
+        "chunk2": chunk2,
+        "window_ms": window_ms,
+        "window2_ms": window2_ms,
     }
+
+
+def timing_plan(num_epochs: int) -> tuple[int, int, int, int]:
+    """(chunk, n_exec, chunk2, n2) for ``num_epochs`` timed epochs (the
+    rule in ``train_and_time``'s docstring); n2 is 0 without a fit."""
+    chunk = max(1, num_epochs // MIN_WINDOWS)
+    n_exec = max(MIN_WINDOWS, -(-num_epochs // chunk))
+    chunk2 = chunk // 8
+    n2 = max(MIN_WINDOWS, min(16, n_exec)) if chunk2 >= 1 else 0
+    return chunk, n_exec, chunk2, n2
+
+
+def marginal_fit(
+    window_ms: Sequence[float], window2_ms: Sequence[float], chunk: int,
+    chunk2: int,
+) -> tuple[float, float]:
+    """(epoch_ms, exec_fixed_ms) from the windows of ``chunk`` and
+    ``chunk2`` epochs: the slope and intercept through the two medians
+    (gnnadvisor_osdi21_tpu/train.py:263-272), or the plain mean per epoch
+    and 0 without a second set or where noise inverts the fit."""
+    mean = statistics.fmean(window_ms) / chunk
+    if not window2_ms:
+        return mean, 0.0
+    med1 = statistics.median(window_ms)
+    med2 = statistics.median(window2_ms)
+    marg = (med1 - med2) / (chunk - chunk2)
+    if marg <= 0:  # guard: noise can invert the fit
+        return mean, 0.0
+    return marg, max(med1 - chunk * marg, 0.0)
+
+
+def _window_ms(step, n: int) -> float:
+    """Milliseconds of ``n`` training steps between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        step()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)

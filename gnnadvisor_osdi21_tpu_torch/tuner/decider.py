@@ -11,7 +11,10 @@ their own launches, so it is gone.
 
 Models are the 2-layer GCN and the 5-layer GIN; the layout is transposed
 (``transposed=None`` or True, the JAX default for the hybrid method) or
-row-major (``transposed=False``).  Not ported yet, and refused with
+row-major (``transposed=False``).  ``probe`` is the measured-probe tier
+autotune (``graphs/hybrid.build_hybrid``): None probes auto tiers when the
+layout is built for the card, as the JAX decider does on its TPU; False
+trusts the cost model.  Not ported yet, and refused with
 ``NotImplementedError``: the ELL, dense and COO methods (ROADMAP.md item
 A.4), manual mode (which defaults to ELL) and reordering (item A.3).
 """
@@ -23,6 +26,7 @@ from typing import Optional
 
 import numpy as np
 
+from gnnadvisor_osdi21_tpu_torch.device import resolve_device
 from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import build_hybrid, choose_tiers
 from gnnadvisor_osdi21_tpu_torch.graphs.loader import GraphCSR
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import (
@@ -57,6 +61,7 @@ class InputProperty:
         verbose: bool = False,
         agg_dtype: str = "bfloat16",
         transposed: Optional[bool] = None,
+        probe: Optional[bool] = None,
     ):
         if model not in ("gcn", "gin"):
             raise ValueError(f"unknown model: {model}")
@@ -78,6 +83,7 @@ class InputProperty:
         self.verbose = verbose
         self.agg_dtype = agg_dtype
         self.transposed = transposed
+        self.probe = probe
         self.layer_input: Optional[LayerConfig] = None
         self.layer_hidden: Optional[LayerConfig] = None
         self.hybrid_graph = None  # set by build_tensors
@@ -130,14 +136,23 @@ class InputProperty:
         another gather (``hybrid_agg.single_stage``)."""
         if self.layer_input is None:
             raise RuntimeError("call decider() first")
+        dev = resolve_device(device)
         # the user's values, not the decider's: build_hybrid re-prices the
-        # tiers at the residual geometry it builds, as the JAX build does
+        # tiers at the residual geometry it builds, as the JAX build does,
+        # and the probe may override the model's pick on the card
         hg = self.hybrid_graph = build_hybrid(
-            self.graph, hot_k=self._user_hot_k, diag_b=self._user_diag_b
+            self.graph, hot_k=self._user_hot_k, diag_b=self._user_diag_b,
+            probe=self.probe, device=dev,
         )
-        self.diag_b, self.hot_k = hg.diag_b, hg.hot_k
+        if (hg.diag_b, hg.hot_k) != (self.diag_b, self.hot_k):
+            if self.verbose:
+                print(f"# probe autotune: measured ({hg.diag_b},{hg.hot_k}) "
+                      f"over model ({self.diag_b},{self.hot_k})")
+            # the tier-dependent geometry: the CUDA kernels size their own
+            # launches, so the tiers themselves are all there is to refresh
+            self.diag_b, self.hot_k = hg.diag_b, hg.hot_k
         return build_layer_tensors(
-            hg, self.agg_dims(), device=device, agg_dtype=self.agg_dtype,
+            hg, self.agg_dims(), device=dev, agg_dtype=self.agg_dtype,
             transposed=self.transposed is not False,
         )
 

@@ -33,6 +33,12 @@ PORT_MODULES = [
     "gnnadvisor_osdi21_tpu_torch.models.gcn",
     "gnnadvisor_osdi21_tpu_torch.models.gin",
     "gnnadvisor_osdi21_tpu_torch.train",
+    "gnnadvisor_osdi21_tpu_torch.ops.probe_cuda",
+    "gnnadvisor_osdi21_tpu_torch.utils",
+    "gnnadvisor_osdi21_tpu_torch.utils.timing",
+    "gnnadvisor_osdi21_tpu_torch.bench",
+    "gnnadvisor_osdi21_tpu_torch.bench.fixprobe",
+    "gnnadvisor_osdi21_tpu_torch.bench.stepprobe",
     "chip_smoke",
 ]
 

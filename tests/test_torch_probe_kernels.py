@@ -1,0 +1,333 @@
+"""The probe kernels' plain versions (reached through the port's wrappers
+on CPU tensors) against the JAX package's Pallas probe kernels in
+interpret mode, on the same numpy inputs, for every dtype pair of their
+path; and the port's slab builders against the JAX package's.
+
+The JAX kernels are defined inside the probe scripts' ``main()`` and
+cannot be imported, so this file carries copies of them: each kernel
+body and its ``pallas_call`` wrapper as written there, with
+``interpret=True`` added to the ``pallas_call`` (the only change).
+
+Tolerance rtol 1e-5 / atol 1e-5: both sides add exact f32 products of
+0/1 slab values and bf16- or f32-valued features in f32; only the order
+of the sums differs.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from gnnadvisor_osdi21_tpu.ops import spmm_pallas
+from gnnadvisor_osdi21_tpu.ops.spmm_pallas import _unpack_tile_t
+from gnnadvisor_osdi21_tpu_torch.bench import fixprobe, stepprobe
+from gnnadvisor_osdi21_tpu_torch.graphs import hybrid
+from gnnadvisor_osdi21_tpu_torch.ops import probe_cuda
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+# --- copy of gnnadvisor_osdi21_tpu/bench/fixprobe.py:63-119 -----------------
+def _bit_t_kernel(bits_ref, shift_ref, xt_ref, out_ref):
+    a_t = _unpack_tile_t(bits_ref, shift_ref, xt_ref.dtype)  # [K, TR]
+    out_ref[:] = jax.lax.dot_general(
+        xt_ref[:], a_t, (((1,), (0,)), ((), ())),
+        preferred_element_type=jnp.float32,
+    )  # [D, TR]
+
+
+@functools.partial(jax.jit, static_argnames=("br_",))
+def bit_slab_t(bits_t, x_t, br_):
+    w32, r_ = bits_t.shape
+    k_ = w32 * 32
+    d_ = x_t.shape[0]
+    shift_col = (jnp.arange(k_, dtype=jnp.uint32) // jnp.uint32(w32))[:, None]
+    return pl.pallas_call(
+        _bit_t_kernel,
+        out_shape=jax.ShapeDtypeStruct((d_, r_), jnp.float32),
+        grid_spec=pl.GridSpec(
+            grid=(r_ // br_,),
+            in_specs=[
+                pl.BlockSpec((w32, br_), lambda i: (0, i),
+                             memory_space=pltpu.VMEM),
+                pl.BlockSpec((k_, 1), lambda i: (0, 0),
+                             memory_space=pltpu.VMEM),
+                pl.BlockSpec((d_, k_), lambda i: (0, 0),
+                             memory_space=pltpu.VMEM),
+            ],
+            out_specs=pl.BlockSpec((d_, br_), lambda i: (0, i),
+                                   memory_space=pltpu.VMEM),
+        ),
+        interpret=True,
+    )(bits_t, shift_col, x_t)
+
+
+def _i8_t_kernel(a_ref, xt_ref, out_ref):
+    a = a_ref[:].astype(xt_ref.dtype)
+    out_ref[:] = jax.lax.dot_general(
+        xt_ref[:], a, (((1,), (0,)), ((), ())),
+        preferred_element_type=jnp.float32,
+    )
+
+
+@functools.partial(jax.jit, static_argnames=("br_",))
+def i8_slab_t(a_t, x_t, br_):
+    k_, r_ = a_t.shape
+    d_ = x_t.shape[0]
+    return pl.pallas_call(
+        _i8_t_kernel,
+        out_shape=jax.ShapeDtypeStruct((d_, r_), jnp.float32),
+        grid_spec=pl.GridSpec(
+            grid=(r_ // br_,),
+            in_specs=[
+                pl.BlockSpec((k_, br_), lambda i: (0, i),
+                             memory_space=pltpu.VMEM),
+                pl.BlockSpec((d_, k_), lambda i: (0, 0),
+                             memory_space=pltpu.VMEM),
+            ],
+            out_specs=pl.BlockSpec((d_, br_), lambda i: (0, i),
+                                   memory_space=pltpu.VMEM),
+        ),
+        interpret=True,
+    )(a_t, x_t)
+
+
+# --- copy of gnnadvisor_osdi21_tpu/bench/stepprobe.py:69-97 -----------------
+def _dense_kernel(a_ref, x_ref, o_ref):
+    a = a_ref[:]
+    if a.dtype != x_ref.dtype:
+        a = a.astype(x_ref.dtype)
+    o_ref[:] = jax.lax.dot_general(
+        a, x_ref[:], (((0,), (0,)), ((), ())),
+        preferred_element_type=jnp.float32,
+    )
+
+
+@functools.partial(jax.jit, static_argnames=("br",))
+def dense_slab(a_t, x, br):
+    k_, r_ = a_t.shape
+    d_ = x.shape[1]
+    return pl.pallas_call(
+        _dense_kernel,
+        out_shape=jax.ShapeDtypeStruct((r_, d_), jnp.float32),
+        grid_spec=pl.GridSpec(
+            grid=(r_ // br,),
+            in_specs=[
+                pl.BlockSpec((k_, br), lambda i: (0, i),
+                             memory_space=pltpu.VMEM),
+                pl.BlockSpec((k_, d_), lambda i: (0, 0),
+                             memory_space=pltpu.VMEM),
+            ],
+            out_specs=pl.BlockSpec((br, d_), lambda i: (i, 0),
+                                   memory_space=pltpu.VMEM),
+        ),
+        interpret=True,
+    )(a_t, x)
+
+
+# ---------------------------------------------------------------------------
+
+
+def _edges(seed: int, r: int, k: int):
+    """8·R random (row, column) pairs, as the probe scripts draw them."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, r, size=8 * r), rng.integers(0, k, size=8 * r)
+
+
+def _dense01(rows, cols, k, r):
+    a = np.zeros((k, r), dtype=np.int8)
+    a[cols, rows] = 1
+    return a
+
+
+def _both(x: np.ndarray, dtype: str):
+    """The same values for both sides: bf16 rounds the same way in each."""
+    j = jnp.asarray(x).astype(dtype)
+    t = torch.from_numpy(x).to(getattr(torch, dtype))
+    np.testing.assert_array_equal(
+        np.asarray(j, dtype=np.float32), t.float().numpy()
+    )
+    return j, t
+
+
+# K = 64 and up puts more than one word in a row (W32 > 1): the bit order
+# column j -> word j % W32, bit j // W32 is what the test pins
+@pytest.mark.parametrize("k", (64, 128, 256))
+def test_bit_slab_t_matches_jax(k):
+    r = 1024
+    rows, cols = _edges(k, r, k)
+    bits = np.ascontiguousarray(hybrid.pack_slab_bits(rows, cols, r, k).T)
+    xj, xt = _both(
+        np.random.default_rng(k + 1).standard_normal((16, k)).astype(np.float32),
+        "bfloat16",
+    )
+    want = np.asarray(bit_slab_t(jnp.asarray(bits), xj, br_=512))
+    got = probe_cuda.bit_slab_t(torch.from_numpy(bits), xt)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    # the dense product over the same edges, as a third opinion
+    a = _dense01(rows, cols, k, r).astype(np.float32)
+    np.testing.assert_allclose(
+        want, xt.float().numpy() @ a, **TOL
+    )
+
+
+@pytest.mark.parametrize("k", (64, 128, 256))
+def test_i8_slab_t_matches_jax(k):
+    r = 1024
+    a = _dense01(*_edges(10 + k, r, k), k, r)
+    xj, xt = _both(
+        np.random.default_rng(k + 2).standard_normal((16, k)).astype(np.float32),
+        "bfloat16",
+    )
+    want = np.asarray(i8_slab_t(jnp.asarray(a), xj, br_=512))
+    got = probe_cuda.i8_slab_t(torch.from_numpy(a), xt)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("slab, feat", (
+    ("int8", "bfloat16"), ("bfloat16", "bfloat16"), ("int8", "float32"),
+))
+@pytest.mark.parametrize("k", (64, 256))
+def test_dense_slab_matches_jax(k, slab, feat):
+    r = 2048
+    a = _dense01(*_edges(20 + k, r, k), k, r)
+    aj = jnp.asarray(a).astype(slab)
+    at = torch.from_numpy(a).to(getattr(torch, slab))
+    xj, xt = _both(
+        np.random.default_rng(k + 3).standard_normal((k, 16)).astype(np.float32),
+        feat,
+    )
+    want = np.asarray(dense_slab(aj, xj, br=512))
+    got = probe_cuda.dense_slab(at, xt)
+    assert got.shape == (r, 16) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+# --- the slab builders -------------------------------------------------------
+
+
+@pytest.mark.parametrize("k", (32, 64, 256))
+def test_pack_slab_bits_matches_jax(k):
+    rows, cols = _edges(30 + k, 700, k)
+    want = spmm_pallas.pack_slab_bits(rows, cols, 700, k)
+    got = hybrid.pack_slab_bits(rows, cols, 700, k)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("k", (32, 64, 256))
+def test_transpose_slab_matches_jax(k):
+    rows, cols = _edges(40 + k, 700, k)
+    bits = spmm_pallas.pack_slab_bits(rows, cols, 700, k)
+    want = spmm_pallas.transpose_slab(bits)
+    got = hybrid.transpose_slab(bits)
+    assert got.dtype == want.dtype == np.uint16 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    # stepprobe builds its slabs with pack_slab_bits_t: the same bytes
+    np.testing.assert_array_equal(
+        hybrid.pack_slab_bits_t(rows, cols, 700, k), want
+    )
+
+
+def test_unpack_bits32_is_the_bit_major_layout():
+    """Column j of a uint32 slab: word j % W32, bit j // W32 (W32 = 4)."""
+    k, r = 128, 3
+    rows = np.array([0, 1, 2, 2])
+    cols = np.array([5, 127, 0, 64])
+    bits = np.ascontiguousarray(hybrid.pack_slab_bits(rows, cols, r, k).T)
+    dense = probe_cuda.unpack_bits32(torch.from_numpy(bits)).numpy()
+    want = np.zeros((k, r), np.float32)
+    want[cols, rows] = 1
+    np.testing.assert_array_equal(dense, want)
+
+
+# --- the wrappers -------------------------------------------------------------
+
+
+def test_block_rows_follow_the_tpu_sweep():
+    assert [probe_cuda.block_rows_for(b) for b in (512, 1024, 2048, 4096, 8192)] \
+        == [32, 64, 128, 256, 512]
+
+
+class _CudaTyped(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: enough to steer dispatch."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _cuda_typed(t: torch.Tensor) -> torch.Tensor:
+    return torch.Tensor._make_subclass(_CudaTyped, t)
+
+
+@pytest.mark.parametrize("kernel", probe_cuda.KERNELS)
+def test_cuda_tensors_never_reach_the_plain_version(kernel, monkeypatch):
+    launched = []
+
+    def plain(*args, **kwargs):
+        raise AssertionError(f"{kernel}: CUDA operands reached the plain version")
+
+    for name in probe_cuda.KERNELS:
+        monkeypatch.setattr(probe_cuda, f"{name}_plain", plain)
+        monkeypatch.setattr(
+            probe_cuda, f"_{name}_cuda",
+            lambda *a, _n=name: launched.append(_n) or "launched",
+        )
+    x_t = _cuda_typed(torch.zeros((16, 64), dtype=torch.bfloat16))
+    if kernel == "bit_slab_t":
+        bits = _cuda_typed(torch.zeros((2, 512), dtype=torch.uint32))
+        got = probe_cuda.bit_slab_t(bits, x_t)
+    elif kernel == "i8_slab_t":
+        a = _cuda_typed(torch.zeros((64, 512), dtype=torch.int8))
+        got = probe_cuda.i8_slab_t(a, x_t)
+    else:
+        a = _cuda_typed(torch.zeros((64, 512), dtype=torch.int8))
+        x = _cuda_typed(torch.zeros((64, 16), dtype=torch.float32))
+        got = probe_cuda.dense_slab(a, x)
+    assert got == "launched" and launched == [kernel]
+
+
+@pytest.mark.parametrize("case", ("width", "k", "block", "dtype_pair"))
+def test_cuda_launches_check_their_shapes(case, monkeypatch):
+    """What the CUDA kernels cannot take raises before any launch."""
+    monkeypatch.setattr(probe_cuda, "_dense_slab_cuda",
+                        lambda *a: pytest.fail("launched"))
+    a = _cuda_typed(torch.zeros((64, 512), dtype=torch.int8))
+    x = _cuda_typed(torch.zeros((64, 16), dtype=torch.bfloat16))
+    kwargs = {}
+    if case == "width":
+        x = _cuda_typed(torch.zeros((64, 8), dtype=torch.bfloat16))
+    elif case == "k":
+        a = _cuda_typed(torch.zeros((48, 512), dtype=torch.int8))
+        x = _cuda_typed(torch.zeros((48, 16), dtype=torch.bfloat16))
+    elif case == "block":
+        kwargs["block_rows"] = 48
+    else:
+        a = _cuda_typed(torch.zeros((64, 512), dtype=torch.bfloat16))
+        x = _cuda_typed(torch.zeros((64, 16), dtype=torch.float32))
+    with pytest.raises(ValueError):
+        probe_cuda.dense_slab(a, x, **kwargs)
+
+
+# --- the probe scripts, rehearsed on the CPU at a small R ---------------------
+
+
+@pytest.mark.parametrize("script, lines", (
+    # bitT: 3 + 3 + 2 + 1 + 0 lines, i8T: 2 + 2 + 2 + 2 + 1, 2 gathers
+    (fixprobe, 20),
+    # hot slab: (12 + 12 + 12 + 8) lines and a header; dense: 27 and a header
+    (stepprobe, 73),
+))
+def test_probe_scripts_keep_the_jax_sweeps(script, lines, capsys):
+    """Each script runs to its end off the card (plain versions) and prints
+    one line per point of the JAX script's sweep, skip rules included."""
+    assert script.main(["--rows", "2048", "--iters", "1", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == lines, out
+    assert all("host" in line for line in out if not line.startswith("=="))
