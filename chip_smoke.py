@@ -30,11 +30,15 @@ PyTorch version on the card:
   versions at every dtype pair, block size and K of their path, at a
   reduced and at the full R, with their time, bound, plain time and
   library times;
-- phase 8: the probe scripts ``bench.fixprobe`` and ``bench.stepprobe``,
-  run unmodified in this process (their launches are the probe kernels'
-  path);
+- phase 8: the probe scripts ``bench.fixprobe``, ``bench.stepprobe`` and
+  ``bench.fmtprobe``, run unmodified in this process (their launches are
+  the probe kernels' path);
 - phase 9: the measured-probe tier autotune at amazon0505 scale, and its
-  cache hit on a second build.
+  cache hit on a second build;
+- phase 10: the format probe's kernels (``ops/fmtprobe_cuda.py``) against
+  their plain versions for every dtype, variant and block of their path,
+  at a reduced and at fmtprobe's full shape, with their time, bound,
+  plain time and library time.
 
 The layouts of phases 2-6 are built with the probe off, so that they are
 the cost model's.  Every check raises on failure, so the exit code is
@@ -59,11 +63,15 @@ import time
 import numpy as np
 import torch
 
-from gnnadvisor_osdi21_tpu_torch.bench import fixprobe, stepprobe
+from gnnadvisor_osdi21_tpu_torch.bench import fixprobe, fmtprobe, stepprobe
 from gnnadvisor_osdi21_tpu_torch.graphs import hybrid
-from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import pack_slab_bits
+from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import (
+    pack_slab_bits, pack_slab_bits_t,
+)
 from gnnadvisor_osdi21_tpu_torch.graphs.loader import synthesize_graph
-from gnnadvisor_osdi21_tpu_torch.ops import _build, probe_cuda, spmm_cuda
+from gnnadvisor_osdi21_tpu_torch.ops import (
+    _build, fmtprobe_cuda, probe_cuda, spmm_cuda,
+)
 from gnnadvisor_osdi21_tpu_torch.ops.aggregate import exact_f32_matmul
 from gnnadvisor_osdi21_tpu_torch.train import MODELS, nll_loss, train_and_time
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import build_layer_tensors
@@ -109,6 +117,10 @@ SOURCES = {
     "bit_slab_t": "gnnadvisor_osdi21_tpu_torch/csrc/probe_slab.cu",
     "i8_slab_t": "gnnadvisor_osdi21_tpu_torch/csrc/probe_slab.cu",
     "dense_slab": "gnnadvisor_osdi21_tpu_torch/csrc/probe_slab.cu",
+    "stream_sum": "gnnadvisor_osdi21_tpu_torch/csrc/fmt_probe.cu",
+    "i8_slab": "gnnadvisor_osdi21_tpu_torch/csrc/fmt_probe.cu",
+    "bit_slab": "gnnadvisor_osdi21_tpu_torch/csrc/fmt_probe.cu",
+    "seg_reduce": "gnnadvisor_osdi21_tpu_torch/csrc/fmt_probe.cu",
 }
 REPLACES = {
     "slab_matmul_t": "gnnadvisor_osdi21_tpu/ops/spmm_pallas.py:469",
@@ -120,6 +132,10 @@ REPLACES = {
     "bit_slab_t": "gnnadvisor_osdi21_tpu/bench/fixprobe.py:63",
     "i8_slab_t": "gnnadvisor_osdi21_tpu/bench/fixprobe.py:94",
     "dense_slab": "gnnadvisor_osdi21_tpu/bench/stepprobe.py:69",
+    "stream_sum": "gnnadvisor_osdi21_tpu/bench/fmtprobe.py:53",
+    "i8_slab": "gnnadvisor_osdi21_tpu/bench/fmtprobe.py:118",
+    "bit_slab": "gnnadvisor_osdi21_tpu/bench/fmtprobe.py:216",
+    "seg_reduce": "gnnadvisor_osdi21_tpu/bench/fmtprobe.py:287",
 }
 # the amazon0505-scale graph's (edge count, fingerprint) by numpy version:
 # the generator draws one edge fewer under numpy 2.3.5 than under 2.0.2,
@@ -128,6 +144,10 @@ EXPECTED_GRAPH = {"2.0.2": (3_395_067, "5d8a7ec0"),
                   "2.3.5": (3_395_066, "12727dd5")}
 PROBE_R = 409_600  # the probe scripts' graph rows
 PROBE_R_SMALL = 8_192  # the reduced R of the probe kernels' checks
+FMT_R, FMT_K = 410_624, 4096  # fmtprobe's default rows and slab columns
+FMT_SMALL = (8_192, 256)  # the reduced (R, K) of its kernels' checks
+# fmtprobe's (TILE, OB) pairs of the segment reduce
+SEG_PAIRS = ((256, 256), (512, 512), (256, 512), (512, 256), (1024, 512))
 
 T0 = time.perf_counter()
 
@@ -219,17 +239,22 @@ def bound(rec: Record, nbytes: int, adds: int,
     rec.bound_by = "bytes" if t_bytes >= t_ops else "operations"
 
 
-def compare(rec: Record, label: str, kernel, plain) -> None:
+def compare(rec: Record, label: str, kernel, plain, tol=None,
+            tol_text: str = "") -> None:
+    """Kernel against plain within ATOL + RTOL·|plain|, or within the
+    per-element ``tol`` (described by ``tol_text``) where given."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     require(got.shape == want.shape and got.dtype == torch.float32,
             f"{label}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
     err = (got - want).abs()
-    ok = bool((err <= ATOL + RTOL * want.abs()).all())
+    if tol is None:
+        tol, tol_text = ATOL + RTOL * want.abs(), f"{ATOL:g} + {RTOL:g}·|plain|"
+    ok = bool((err <= tol).all())
     max_err = float(err.max()) if err.numel() else 0.0
     rec.max_abs_err = max(rec.max_abs_err, max_err)
     log(f"  {label}: max_abs_err {max_err:.3e} "
-        f"(tolerance {ATOL:g} + {RTOL:g}·|plain|) {'ok' if ok else 'FAIL'}")
+        f"(tolerance {tol_text}) {'ok' if ok else 'FAIL'}")
     require(ok, f"{label} disagrees with its plain version")
 
 
@@ -476,21 +501,23 @@ def phase2(layouts, recs) -> None:
 
 
 def timed(rec: Record, label: str, kernel, plain, library, nbytes: int,
-          adds: int, record: bool) -> None:
-    """Time a kernel at one shape; with ``record``, also its plain version
-    and the library call, and keep all three with the bound in ``rec``."""
+          adds: int, record: bool, lib_name: str = "torch.sparse.mm (f32 CSR)",
+          rate: float = F32_OPS_PER_S) -> None:
+    """Time a kernel at one shape beside one library call (``lib_name``);
+    with ``record``, also its plain version, and keep all three with the
+    bound (``adds`` operations at ``rate``) in ``rec``."""
     ms = time_ms(kernel)
     lib_ms = time_ms(library)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = adds / F32_OPS_PER_S * 1e3
+    t_ops = adds / rate * 1e3
     extra = ""
     if record:
         rec.ms, rec.library_ms = ms, lib_ms
         rec.plain_ms = time_ms(plain)
-        bound(rec, nbytes, adds)
+        bound(rec, nbytes, adds, rate)
         extra = f", plain {rec.plain_ms:.4f} ms"
-    log(f"  {rec.name} {label}: {ms:.4f} ms{extra}, torch.sparse.mm (f32 "
-        f"CSR) {lib_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+    log(f"  {rec.name} {label}: {ms:.4f} ms{extra}, {lib_name} "
+        f"{lib_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
         f"({'bytes' if t_bytes >= t_ops else 'operations'})")
 
 
@@ -957,16 +984,19 @@ def phase7(recs) -> None:
 def phase8(recs) -> None:
     """The probe scripts, unmodified: their kernel launches are the path
     the probe kernels' counts come from."""
-    for name, script in (("fixprobe", fixprobe), ("stepprobe", stepprobe)):
+    for name, script in (("fixprobe", fixprobe), ("stepprobe", stepprobe),
+                         ("fmtprobe", fmtprobe)):
         log(f"phase 8: {name}.main([])")
         spmm_cuda.reset_launches()
         probe_cuda.reset_launches()
+        fmtprobe_cuda.reset_launches()
         start = time.perf_counter()
         require(script.main([]) == 0, f"{name} ran to its end")
+        probes = {**probe_cuda.launches, **fmtprobe_cuda.launches}
         counts = {k: v for k, v in {**spmm_cuda.launches,
-                                    **probe_cuda.launches}.items() if v}
+                                    **probes}.items() if v}
         log(f"  {name}: {time.perf_counter() - start:.1f} s; launches {counts}")
-        for kname, n in probe_cuda.launches.items():
+        for kname, n in probes.items():
             if n:
                 recs[kname].launches += n
 
@@ -1035,6 +1065,224 @@ def phase9(layouts) -> None:
         f"must win by {hybrid.PROBE_MARGIN:.0%}")
 
 
+
+def fmt_seg_inputs(r: int, tile: int, ob: int, rng, gen, several: bool,
+                   ones: bool):
+    """Segment-reduce inputs at R rows: fmtprobe's (its 393,216 slots
+    spread evenly over the blocks, tile-aligned) or, with ``several``,
+    three tiles per block, a restart (``first``) inside block 1 and the
+    last block without a tile.  Values unit normal, or ones as fmtprobe's.
+    Returns the kernel's arguments before ``s`` and ``n_blocks``."""
+    n_blocks = r // ob
+    if several:
+        t2b = np.repeat(np.arange(n_blocks - 1, dtype=np.int32), 3)
+    else:
+        per_block = max(((393_216 // n_blocks) // tile) * tile, tile)
+        t2b = np.repeat(np.arange(n_blocks, dtype=np.int32), per_block // tile)
+    first = np.ones(len(t2b), dtype=np.int32)
+    first[1:] = t2b[1:] != t2b[:-1]
+    if several:
+        first[4] = 1
+    m = len(t2b) * tile
+    segs = np.sort(rng.integers(0, ob, (len(t2b), tile))).astype(np.int32)
+    masks = rng.integers(1, 255, (m, 1)).astype(np.uint32)
+    vals = (torch.ones((m, 128), device=DEVICE) if ones else
+            torch.randn((m, 128), generator=gen, device=DEVICE))
+    dev = [torch.from_numpy(a).to(DEVICE)
+           for a in (masks, segs.reshape(-1, 1), t2b, first)]
+    return (vals, *dev), n_blocks
+
+
+def phase10(recs) -> None:
+    """Each format-probe kernel against its plain version: every dtype,
+    variant and block of fmtprobe's path at a reduced (R, K) and at its
+    full shape; timed at the full shape with its bound, its plain version
+    and a library call."""
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    rng = np.random.default_rng(10)
+    bf16, f32 = torch.bfloat16, torch.float32
+    log("phase 10: the format probe kernels against their plain versions "
+        "on the card")
+    torch.cuda.reset_peak_memory_stats()
+    s = torch.randn((8, 128), generator=gen, device=DEVICE)
+
+    def dense_tol(a01, x):
+        """Dense contractions of a 0/1 slab over K terms (random features):
+        2^-16 of the terms' magnitudes, 16 times below the worst case of f32
+        summation over 4096 terms and far above its random walk."""
+        t = fmtprobe_cuda.i8_slab_plain(a01, x.abs())
+        return ATOL + 2.0 ** -16 * t, "1e-4 + 2^-16·(A·|x|)"
+
+    for r, k in (FMT_SMALL, (FMT_R, FMT_K)):
+        full = r == FMT_R
+        # --- stream_sum: int8, f32, uint32 words read as int32 ------------
+        rec = recs["stream_sum"]
+        makers = (
+            ("int8", lambda: torch.randint(-128, 128, (r, k), generator=gen,
+                                           device=DEVICE, dtype=torch.int8)),
+            ("f32 uniform", lambda: torch.rand((r, k), generator=gen,
+                                               device=DEVICE)),
+            ("f32 integers", lambda: torch.randint(
+                -1000, 1001, (r, k), generator=gen, device=DEVICE, dtype=f32)),
+            ("u32", lambda: torch.randint(
+                -2 ** 31, 2 ** 31, (r, k), generator=gen, device=DEVICE,
+                dtype=torch.int32).view(torch.uint32)),
+        )
+        for kind, make in makers:
+            a = make()
+            compare(rec, f"stream_sum R={r} K={k} {kind} block 512",
+                    lambda: fmtprobe_cuda.stream_sum(a, s, 512),
+                    lambda: fmtprobe_cuda.stream_sum_plain(a, s, 512))
+            if full and kind != "f32 integers":
+                g = r // 512
+                words = a.view(torch.int32) if a.dtype == torch.uint32 else a
+                nbytes = a.numel() * a.element_size() + s.numel() * 4 \
+                    + g * 8 * 128 * 4
+                timed(rec, f"R={r} K={k} {kind}",
+                      lambda: fmtprobe_cuda.stream_sum(a, s, 512),
+                      lambda: fmtprobe_cuda.stream_sum_plain(a, s, 512),
+                      lambda: torch.sum(words.view(g, 512 * k), dim=1,
+                                        dtype=f32),
+                      nbytes, a.numel(), record=kind == "f32 uniform",
+                      lib_name="torch.sum")
+            del a
+
+        # --- i8_slab: random 0/1 and all ones, blocks 512 and 1024 --------
+        rec = recs["i8_slab"]
+        x_dy = torch.randint(-8, 9, (k, 16), generator=gen, device=DEVICE,
+                             dtype=f32) / 4
+        x_n = torch.randn((k, 16), generator=gen, device=DEVICE)
+        for kind in ("random 0/1", "all ones"):
+            a = (torch.randint(0, 2, (r, k), generator=gen, device=DEVICE,
+                               dtype=torch.int8) if kind == "random 0/1"
+                 else torch.ones((r, k), dtype=torch.int8, device=DEVICE))
+            for feat, x in (("dyadic", x_dy), ("normal", x_n)):
+                want = fmtprobe_cuda.i8_slab_plain(a, x)
+                tol, text = ((torch.zeros_like(want), "exact")
+                             if feat == "dyadic" else dense_tol(a, x))
+                for blk in (512, 1024):
+                    compare(rec, f"i8_slab R={r} K={k} {kind} x {feat} "
+                            f"block {blk}",
+                            lambda: fmtprobe_cuda.i8_slab(a, x, blk),
+                            lambda: want, tol, text)
+                del want, tol
+            if kind == "random 0/1" and not full:
+                idx = a.nonzero().t()
+                csr_a = torch.sparse_coo_tensor(
+                    idx, torch.ones(idx.shape[1], device=DEVICE),
+                    (r, k)).coalesce().to_sparse_csr()
+                xb = x_n.to(bf16)
+                sp_ms = time_ms(lambda: torch.sparse.mm(csr_a, x_n))
+                log(f"  i8_slab R={r} K={k} random 0/1: "
+                    f"{time_ms(lambda: fmtprobe_cuda.i8_slab(a, xb)):.4f} "
+                    f"ms, torch.sparse.mm (f32 CSR, {idx.shape[1]} nnz) "
+                    f"{sp_ms:.4f} ms")
+                del idx, csr_a
+            if full and kind == "all ones":
+                xb = x_n.to(bf16)
+                a16 = a.to(bf16)
+                for blk in (512, 1024):
+                    timed(rec, f"R={r} K={k} all ones block {blk}",
+                          lambda: fmtprobe_cuda.i8_slab(a, xb, blk),
+                          lambda: fmtprobe_cuda.i8_slab_plain(a, xb),
+                          lambda: a16 @ xb,
+                          a.numel() + xb.numel() * 2 + r * 16 * 4,
+                          2 * r * k * 16, record=blk == 512,
+                          lib_name="torch.matmul (bf16 dense)",
+                          rate=BF16_TC_OPS_PER_S)
+                del a16
+            del a
+
+        # --- bit_slab: bf16 and f32, blocks 512 and 1024 ------------------
+        rec = recs["bit_slab"]
+        rows_e, cols_e = rng.integers(0, r, 6 * r), rng.integers(0, k, 6 * r)
+        bits = torch.from_numpy(pack_slab_bits(rows_e, cols_e, r, k)).to(DEVICE)
+        for feat, x in (("dyadic", x_dy), ("normal", x_n)):
+            for variant, xv in (("bf16", x.to(bf16)), ("f32", x)):
+                want = fmtprobe_cuda.bit_slab_plain(bits, xv)
+                exact = feat == "dyadic"
+                for blk in (512, 1024):
+                    compare(rec, f"bit_slab R={r} K={k} {variant} x {feat} "
+                            f"block {blk}",
+                            lambda: fmtprobe_cuda.bit_slab(bits, xv, blk),
+                            lambda: want,
+                            torch.zeros_like(want) if exact else None,
+                            "exact" if exact else "")
+                del want
+        if full:
+            key = np.unique(rows_e.astype(np.int64) * k + cols_e)
+            a_csr = csr(key // k, key % k, (r, k))
+            bits16 = torch.from_numpy(
+                pack_slab_bits_t(rows_e, cols_e, r, k)).to(DEVICE)
+            xb = x_n.to(bf16)
+            for variant, xv, rate in (("bf16", xb, BF16_TC_OPS_PER_S),
+                                      ("f32", x_n, F32_OPS_PER_S)):
+                timed(rec, f"R={r} K={k} {variant} block 512 ({len(key)} nnz)",
+                      lambda: fmtprobe_cuda.bit_slab(bits, xv, 512),
+                      lambda: fmtprobe_cuda.bit_slab_plain(bits, xv),
+                      lambda: torch.sparse.mm(a_csr, x_n),
+                      bits.numel() * 4 + xv.numel() * xv.element_size()
+                      + r * 16 * 4, 2 * r * k * 16,
+                      record=variant == "bf16", rate=rate)
+            log(f"  slab_matmul (the bit walk, bf16) over the same edges: "
+                f"{time_ms(lambda: spmm_cuda.slab_matmul(bits16, xb)):.4f} ms")
+            del a_csr, bits16
+        del bits
+
+        # --- seg_reduce: fmtprobe's five (TILE, OB) pairs -----------------
+        rec = recs["seg_reduce"]
+        for tile, ob in SEG_PAIRS:
+            layouts = [(False, True), (False, False)]
+            if not full:
+                layouts.append((True, False))
+            for several, ones in layouts:
+                args, n_blocks = fmt_seg_inputs(r, tile, ob, rng, gen,
+                                                several, ones)
+                want = fmtprobe_cuda.seg_reduce_plain(*args, s, tile, ob,
+                                                      n_blocks)
+                if ones:
+                    tol, text = torch.zeros_like(want), "exact"
+                else:
+                    s_abs = fmtprobe_cuda.seg_reduce_plain(
+                        args[0].abs(), *args[1:], torch.zeros_like(s), tile,
+                        ob, n_blocks)
+                    tol = ATOL + RTOL * want.abs() + 2.0 ** -7 * s_abs
+                    text = "1e-4 + 1e-5·|plain| + 2^-7·(segment sum of |v|)"
+                    del s_abs
+                label = (f"seg_reduce R={r} TILE={tile} OB={ob} m="
+                         f"{args[0].shape[0]} "
+                         f"{'3 tiles a block' if several else 'fmtprobe'} "
+                         f"{'ones' if ones else 'normal'}")
+                compare(rec, label,
+                        lambda: fmtprobe_cuda.seg_reduce(*args, s, tile, ob,
+                                                         n_blocks),
+                        lambda: want, tol, text)
+                if full and ones:
+                    vals, masks, segs, t2b, first = args
+                    m = vals.shape[0]
+                    v = fmtprobe_cuda.seg_fold(vals, masks)
+                    t2b_h = t2b.cpu().numpy()
+                    seg_h = segs.cpu().numpy().ravel()
+                    slot = np.arange(m)
+                    a_csr = csr(t2b_h[slot // tile].astype(np.int64) * ob
+                                + seg_h, slot, (n_blocks * ob, m))
+                    nbytes = (m * 128 * 4 + m * 8 + len(t2b_h) * 8
+                              + n_blocks * ob * 16 * 4)
+                    timed(rec, f"TILE={tile} OB={ob} m={m}",
+                          lambda: fmtprobe_cuda.seg_reduce(
+                              *args, s, tile, ob, n_blocks),
+                          lambda: fmtprobe_cuda.seg_reduce_plain(
+                              *args, s, tile, ob, n_blocks),
+                          lambda: torch.sparse.mm(a_csr, v), nbytes,
+                          2 * ob * 16 * m, record=(tile, ob) == (512, 512),
+                          lib_name="torch.sparse.mm (f32 CSR, folded v)",
+                          rate=BF16_TC_OPS_PER_S)
+                    del v, a_csr
+                del args, want, tol
+    log(f"  peak device memory of phase 10: "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1045,7 +1293,8 @@ def main() -> int:
     phase1()
     layouts = build_layouts()
     rm = rowmajor_tensors(layouts)
-    recs = {n: Record(n) for n in spmm_cuda.KERNELS + probe_cuda.KERNELS}
+    recs = {n: Record(n) for n in spmm_cuda.KERNELS + probe_cuda.KERNELS
+            + fmtprobe_cuda.KERNELS}
     phase2(layouts, recs)
     phase2_rowmajor(layouts, rm, recs)
     epoch_ms = phase3(layouts, recs)
@@ -1053,7 +1302,7 @@ def main() -> int:
     gin_epoch_ms = phase5(layouts, rm, recs)
     phase6(layouts, rm, recs)
     for phase in (lambda: phase7(recs), lambda: phase8(recs),
-                  lambda: phase9(layouts)):
+                  lambda: phase9(layouts), lambda: phase10(recs)):
         start = time.perf_counter()
         phase()
         log(f"  phase took {time.perf_counter() - start:.1f} s")

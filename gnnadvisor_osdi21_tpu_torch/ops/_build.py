@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argument types (every one returns a cudaError_t as int)
 SIGNATURES = {
     # bits, w16, block, table, R, D, Dp, bf16, out, stream
@@ -56,6 +56,15 @@ SIGNATURES = {
     "gnna_i8_slab_t": (_P, _I, _I, _P, _I, _P, _P),
     # a, a_bf16, K, R, x, x_f32, block_rows, out, stream
     "gnna_dense_slab": (_P, _I, _I, _I, _P, _I, _I, _P, _P),
+    # the format probe's kernels (csrc/fmt_probe.cu):
+    # a, src, g, block_bytes, s, out, stream
+    "gnna_stream_sum": (_P, _I, _I, _L, _P, _P, _P),
+    # a, R, K, x, block_rows, out, stream
+    "gnna_i8_slab": (_P, _I, _I, _P, _I, _P, _P),
+    # bits, R, w32, x, x_f32, block_rows, out, stream
+    "gnna_bit_slab": (_P, _I, _I, _P, _I, _I, _P, _P),
+    # vals, masks, segs, t2b, first, T, tile, ob, n_blocks, s, out, stream
+    "gnna_seg_reduce": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
 }
 
 

@@ -39,6 +39,8 @@ PORT_MODULES = [
     "gnnadvisor_osdi21_tpu_torch.bench",
     "gnnadvisor_osdi21_tpu_torch.bench.fixprobe",
     "gnnadvisor_osdi21_tpu_torch.bench.stepprobe",
+    "gnnadvisor_osdi21_tpu_torch.bench.fmtprobe",
+    "gnnadvisor_osdi21_tpu_torch.ops.fmtprobe_cuda",
     "chip_smoke",
 ]
 
