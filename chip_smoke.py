@@ -15,7 +15,13 @@ PyTorch version on the card:
 - phase 2: each transposed kernel against its plain version at the
   layouts' shapes, for D in {16, 22, 5} and f32/bf16, with its time, its
   byte bound and the time of ``torch.sparse.mm`` over the same edges;
-  then each row-major kernel the same way, for D in {96, 64, 22, 16, 5};
+  then each row-major kernel the same way, for D in {96, 64, 22, 16, 5}
+  (the slab kernels also at 500 and 1433, wider than one 256-column
+  chunk; the residual combine gathering from x by its slot ids and over
+  gathered rows, each without and with an addend, timed against
+  ``torch.sparse.mm`` over its edges read from x, and stopping, in a
+  process of its own, on a slot id past x), and the whole row-major
+  aggregation against ``torch.sparse.mm`` over all of the graph's edges;
 - phase 3: GCN 96 -> 16 -> 22 training on the auto layout (transposed):
   the first step's loss and gradients against the plain path, launch
   counts, and ``epoch_ms`` over timed epochs;
@@ -23,7 +29,8 @@ PyTorch version on the card:
   residual that does not cover every block) for a few steps each;
 - phase 5: GIN 96 -> 64 x4 -> 22 training on the auto layout, row-major:
   the first step against the plain path at f32 and at bf16 aggregation,
-  launch counts, ``gin_epoch_ms`` over timed epochs, and the device time
+  launch counts and ``index_select`` gathers (the hot table's alone),
+  ``gin_epoch_ms`` over timed epochs, and the device time
   of three steps by kernel (``torch.profiler``);
 - phase 6: GCN on the row-major fused and 10k layouts for a few steps;
 - phase 7: the probe kernels (``ops/probe_cuda.py``) against their plain
@@ -66,7 +73,7 @@ import torch
 from gnnadvisor_osdi21_tpu_torch.bench import fixprobe, fmtprobe, stepprobe
 from gnnadvisor_osdi21_tpu_torch.graphs import hybrid
 from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import (
-    pack_slab_bits, pack_slab_bits_t,
+    build_residual_stream, pack_slab_bits, pack_slab_bits_t,
 )
 from gnnadvisor_osdi21_tpu_torch.graphs.loader import synthesize_graph
 from gnnadvisor_osdi21_tpu_torch.ops import (
@@ -74,7 +81,9 @@ from gnnadvisor_osdi21_tpu_torch.ops import (
 )
 from gnnadvisor_osdi21_tpu_torch.ops.aggregate import exact_f32_matmul
 from gnnadvisor_osdi21_tpu_torch.train import MODELS, nll_loss, train_and_time
-from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import build_layer_tensors
+from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import (
+    build_layer_tensors, hybrid_aggregate,
+)
 from gnnadvisor_osdi21_tpu_torch.tuner.decider import InputProperty
 
 # H100 SXM data sheet (dense, no sparsity): memory rate and f32 rate
@@ -100,6 +109,14 @@ GIN_BF16_RTOL = 2.0 ** -8
 REPS = 20  # CUDA-event-timed launches per median
 DIMS = (16, 22, 5)
 ROW_DIMS = (96, 64, 22, 16, 5)  # the row-major kernels' widths
+# GIN's first aggregation runs at the input width: pubmed's and cora's,
+# tables the row-major slab kernel covers in chunks of 256 columns.  Their
+# checks use integer features in [-4, 4], whose every partial sum is exact
+# in f32, and require the kernel to equal its plain version exactly (rows
+# of the diag B=4096 slab sum hundreds of terms: with random f32 values
+# the two summation orders differ past 1e-4 + 1e-5·|plain| somewhere in
+# [R, 1433]).
+WIDE_DIMS = (500, 1433)
 DTYPES = (torch.float32, torch.bfloat16)
 GIN_HIDDEN = 64
 # timed epochs of phases 3 and 5: 8 windows of 8 epochs, fit against 8
@@ -266,6 +283,16 @@ def row_features(n: int, d: int, dtype, gen: torch.Generator) -> torch.Tensor:
     return torch.randn((n, d), generator=gen, device=DEVICE).to(dtype)
 
 
+def slab_case(n: int, d: int, dtype, gen: torch.Generator):
+    """Features of a row-major slab check at width ``d`` and its tolerance
+    (None: ATOL + RTOL·|plain|): integers and an exact match at the wide
+    widths (see WIDE_DIMS)."""
+    if d not in WIDE_DIMS:
+        return row_features(n, d, dtype, gen), None, ""
+    x = torch.randint(-4, 5, (n, d), generator=gen, device=DEVICE)
+    return x.to(dtype), 0.0, "exact, integer features"
+
+
 # every kernel's launch count at 0: a path's expected counts start here
 NO_LAUNCHES = dict.fromkeys(spmm_cuda.KERNELS, 0)
 
@@ -349,8 +376,8 @@ def build_layouts():
 def uncovered(hg):
     """The headline residual stream with the tiles of odd blocks dropped:
     a stream at the same geometry in which half the blocks have no tile.
-    Returns both masks (transposed, row-major), t2b, block_ptr and the
-    slot count."""
+    Returns both masks (transposed, row-major), t2b, block_ptr, the slot
+    count and the kept slots' rows of x (``res_gather[res_dst]``)."""
     keep = (hg.res_t2b % 2) == 0
     tiles = np.nonzero(keep)[0]
     ob, s = hg.res_ob, hg.res_tile
@@ -360,7 +387,8 @@ def uncovered(hg):
     mask = np.ascontiguousarray(hg.res_mask[:, slots])
     t2b = hg.res_t2b[keep]
     ptr = np.searchsorted(t2b, np.arange(hg.num_rows // ob + 1))
-    return mask_s, mask, t2b, ptr.astype(np.int32), len(tiles) * s
+    src = hg.res_gather[hg.res_dst[slots]].astype(np.int32)
+    return mask_s, mask, t2b, ptr.astype(np.int32), len(tiles) * s, src
 
 
 def rowmajor_tensors(layouts) -> dict:
@@ -378,14 +406,18 @@ def rowmajor_tensors(layouts) -> dict:
         "fixed": build_layer_tensors(fixed.hybrid_graph, gcn_dims, **kw),
         "small": build_layer_tensors(small.hybrid_graph, gcn_dims, **kw),
     }
-    gathers = {k: ["one" if h.res_gather is None else "two" for h in hts]
-               for k, hts in rm.items() if hts[0].res_dst is not None}
+    slots = {k: hts[0].res_src.numel() for k, hts in rm.items()
+             if hts[0].res_t2b is not None}
     log(f"layouts row-major: GIN aggregation widths {gin_dims}, GCN "
-        f"{gcn_dims}; residual gather stages per layer {gathers} "
+        f"{gcn_dims}; residual slots (one id each, both layers) {slots} "
         f"({time.perf_counter() - start:.1f} s)")
-    require(all(h.res_mask is not None and h.res_mask_s is None
-                for hts in rm.values() for h in hts if h.res_dst is not None),
-            "row-major tensors keep the row-major mask only")
+    require(all(hts[0] is hts[1] for hts in rm.values())
+            and all(h.res_mask is not None and h.res_mask_s is None
+                    and h.res_src is not None and h.res_dst is None
+                    for hts in rm.values() for h in hts
+                    if h.res_t2b is not None),
+            "row-major tensors are one set for both layers, and keep the "
+            "row-major mask and each slot's row of x only")
     return rm
 
 
@@ -459,7 +491,7 @@ def phase2(layouts, recs) -> None:
     rec = recs["residual_combine_t"]
     ht = hts[0]
     m_pad = hg.num_res_slots
-    mask_u, _, t2b_u, ptr_u, m_u = uncovered(hg)
+    mask_u, _, t2b_u, ptr_u, m_u, _ = uncovered(hg)
     mask_u, t2b_u, ptr_u = (torch.from_numpy(a).to(DEVICE)
                             for a in (mask_u, t2b_u, ptr_u))
     st = sts[0]
@@ -521,6 +553,39 @@ def timed(rec: Record, label: str, kernel, plain, library, nbytes: int,
         f"({'bytes' if t_bytes >= t_ops else 'operations'})")
 
 
+# A residual combine whose slot ids name a row past x, run in a process of
+# its own: the kernel's device-side assert ends that process's use of the
+# card.
+BAD_ID_RUN = '''
+import torch
+from gnnadvisor_osdi21_tpu_torch.ops import spmm_cuda
+x = torch.ones((64, 8), device="cuda")
+src = torch.zeros(128, dtype=torch.int32, device="cuda")
+src[77] = 64
+mask = torch.zeros((4, 128), dtype=torch.int32, device="cuda").view(
+    torch.uint32)
+t2b = torch.zeros(1, dtype=torch.int32, device="cuda")
+ptr = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+spmm_cuda.residual_combine(x, src, mask, t2b, ptr, 128, 128)
+torch.cuda.synchronize()
+print("no error")
+'''
+
+
+def residual_rejects_bad_ids() -> None:
+    """residual_combine on the card stops on a slot id outside x (one
+    row past it) rather than reading past x."""
+    proc = subprocess.run(
+        [sys.executable, "-c", BAD_ID_RUN], capture_output=True, text=True,
+        timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    said = (proc.stdout + proc.stderr).strip().splitlines()
+    log(f"  residual_combine with a slot id past x: exit {proc.returncode}, "
+        f"{said[-1] if said else 'no output'}")
+    require(proc.returncode != 0 and "no error" not in proc.stdout
+            and "assert" in proc.stderr.lower(),
+            "residual_combine read a slot id outside x without an error")
+
+
 def phase2_rowmajor(layouts, rm, recs) -> None:
     """The row-major kernels against their plain versions, at the shapes of
     the row-major paths (GIN's widths 96 and 64, GCN's 16 and 22, and 5)."""
@@ -533,21 +598,29 @@ def phase2_rowmajor(layouts, rm, recs) -> None:
 
     # --- slab_matmul: hot K=4096, diag B=512 and B=4096 -----------------
     rec = recs["slab_matmul"]
+    # plus a slab whose rows end inside the kernel's last 128-row tile
+    rng = np.random.default_rng(2)
+    odd_r = 8_200
+    odd = torch.from_numpy(pack_slab_bits_t(
+        rng.integers(0, odd_r, 40_000), rng.integers(0, 512, 40_000), odd_r,
+        512)).to(DEVICE)
     cases = [("hot K=4096", ht.hot_bits, None, hg.hot_k),
              ("diag B=512", ft.diag_bits, 512, fg.num_rows),
-             ("diag B=4096", st.diag_bits, 4096, sg.num_rows)]
+             ("diag B=4096", st.diag_bits, 4096, sg.num_rows),
+             (f"hot K=512 R={odd_r} random", odd, None, 512)]
     for label, bits, block, n in cases:
-        for d in ROW_DIMS:
+        for d in ROW_DIMS + WIDE_DIMS:
             for dt in DTYPES:
-                x = row_features(n, d, dt, gen)
+                x, tol, tol_text = slab_case(n, d, dt, gen)
                 compare(rec, f"slab_matmul {label} D={d} {dt}",
                         lambda: spmm_cuda.slab_matmul(bits, x, block),
-                        lambda: spmm_cuda.slab_matmul_plain(bits, x, block))
+                        lambda: spmm_cuda.slab_matmul_plain(bits, x, block),
+                        tol, tol_text)
     # timed at the main path's hidden aggregations (hot, D=64, bf16)
     bits = ht.hot_bits
     j, r = bit_coords(hg.hot_bits)
     a = csr(r, j, (hg.num_rows, hg.hot_k))
-    for d in (GIN_HIDDEN, 96, 16):
+    for d in (GIN_HIDDEN, 96, 16, WIDE_DIMS[0]):
         x = row_features(hg.hot_k, d, torch.bfloat16, gen)
         xf = x.float()
         timed(rec, f"hot K=4096 D={d} bf16 ({len(j)} nnz)",
@@ -560,15 +633,15 @@ def phase2_rowmajor(layouts, rm, recs) -> None:
     # --- fused_slab_matmul at (512, 512) --------------------------------
     rec = recs["fused_slab_matmul"]
     dbits, hbits = ft.diag_bits, ft.hot_bits
-    for d in ROW_DIMS:
+    for d in ROW_DIMS + WIDE_DIMS:
         for dt in DTYPES:
-            x = row_features(fg.num_rows, d, dt, gen)
-            xh = row_features(fg.hot_k, d, dt, gen)
+            x, tol, tol_text = slab_case(fg.num_rows, d, dt, gen)
+            xh, _, _ = slab_case(fg.hot_k, d, dt, gen)
             compare(rec, f"fused_slab_matmul (512, 512) D={d} {dt}",
                     lambda: spmm_cuda.fused_slab_matmul(
                         dbits, hbits, x, xh, 512),
                     lambda: spmm_cuda.fused_slab_matmul_plain(
-                        dbits, hbits, x, xh, 512))
+                        dbits, hbits, x, xh, 512), tol, tol_text)
     jd, rd = bit_coords(fg.diag_bits)
     jh, rh = bit_coords(fg.hot_bits)
     a = csr(np.concatenate([rd, rh]),
@@ -590,44 +663,115 @@ def phase2_rowmajor(layouts, rm, recs) -> None:
               record=d == 16)
 
     # --- residual_combine at (OB 512, S 256): covering or not -----------
+    # every stream through its slots' rows of x (res_src) and over gathered
+    # rows (res_src = arange), each without and with an addend
     rec = recs["residual_combine"]
     m_pad = hg.num_res_slots
-    _, mask_u, t2b_u, ptr_u, m_u = uncovered(hg)
-    mask_u, t2b_u, ptr_u = (torch.from_numpy(a).to(DEVICE)
-                            for a in (mask_u, t2b_u, ptr_u))
+    _, mask_u, t2b_u, ptr_u, m_u, src_u = uncovered(hg)
+    mask_u, t2b_u, ptr_u, src_u = (torch.from_numpy(a).to(DEVICE)
+                                   for a in (mask_u, t2b_u, ptr_u, src_u))
     streams = [
-        ("(512, 256) covering", ht.res_mask, ht.res_t2b, ht.res_block_ptr,
-         m_pad, hg.num_rows, hg.res_ob),
-        ("(512, 256) half the blocks empty", mask_u, t2b_u, ptr_u, m_u,
+        ("(512, 256) covering", ht.res_src, ht.res_mask, ht.res_t2b,
+         ht.res_block_ptr, hg.num_rows, hg.res_ob),
+        ("(512, 256) half the blocks empty", src_u, mask_u, t2b_u, ptr_u,
          hg.num_rows, hg.res_ob),
-        (f"10k ({sg.res_ob}, {sg.res_tile}) not covering", st.res_mask,
-         st.res_t2b, st.res_block_ptr, sg.num_res_slots, sg.num_rows,
-         sg.res_ob),
+        (f"10k ({sg.res_ob}, {sg.res_tile}) not covering", st.res_src,
+         st.res_mask, st.res_t2b, st.res_block_ptr, sg.num_rows, sg.res_ob),
     ]
-    for label, mask, t2b, ptr, m, n_rows, ob in streams:
+    # and random streams at other geometries: blocks of 4 mask words
+    # (OB 128, S 64) and of 32, split over two blocks of threads (OB 1024,
+    # S 32)
+    for ob, tile in ((128, 64), (1024, 32)):
+        n_rows = 16_384
+        rs = rng.integers(0, n_rows, 60_000)
+        rd = rng.integers(0, n_rows, 60_000)
+        rs, rd = np.unique(np.stack([rs, rd]), axis=1)
+        gather, dst, mask, _, t2b, _ = build_residual_stream(
+            rs, rd, n_rows, n_rows, tile, ob)
+        ptr = np.searchsorted(t2b, np.arange(n_rows // ob + 1))
+        streams.append((f"random ({ob}, {tile})", *(
+            torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE) for a in (
+                gather[dst].astype(np.int32), mask, t2b,
+                ptr.astype(np.int32))), n_rows, ob))
+    for label, src, mask, t2b, ptr, n_rows, ob in streams:
+        arange = torch.arange(src.shape[0], dtype=torch.int32, device=DEVICE)
         for d in ROW_DIMS:
             for dt in DTYPES:
-                x = row_features(m, d, dt, gen)
-                compare(rec, f"residual_combine {label} D={d} {dt}",
-                        lambda: spmm_cuda.residual_combine(
-                            x, mask, t2b, ptr, n_rows, ob),
-                        lambda: spmm_cuda.residual_combine_plain(
-                            x, mask, t2b, n_rows, ob))
+                x = row_features(n_rows, d, dt, gen)
+                rows = row_features(src.shape[0], d, dt, gen)
+                h = row_features(n_rows, d, torch.float32, gen)
+                for via, xs, ids in (("res_src", x, src),
+                                     ("arange", rows, arange)):
+                    for add in (None, h):
+                        compare(
+                            rec, f"residual_combine {label} D={d} {dt} "
+                            f"{via}{'' if add is None else ' + addend'}",
+                            lambda: spmm_cuda.residual_combine(
+                                xs, ids, mask, t2b, ptr, n_rows, ob, add),
+                            lambda: spmm_cuda.residual_combine_plain(
+                                xs, ids, mask, t2b, ptr, n_rows, ob, add))
+    residual_rejects_bad_ids()
+    # the library calls: the same function (edges over x), and the old
+    # one over the gathered slot rows
     o, slot = mask32_coords(hg.res_mask)
-    a = csr(hg.res_t2b[slot // hg.res_tile].astype(np.int64) * hg.res_ob + o,
-            slot, (hg.num_rows, m_pad))
-    args = (ht.res_mask, ht.res_t2b, ht.res_block_ptr, hg.num_rows, hg.res_ob)
+    out_row = hg.res_t2b[slot // hg.res_tile].astype(np.int64) * hg.res_ob + o
+    res_src = ht.res_src.cpu().numpy()
+    a_x = csr(out_row, res_src[slot], (hg.num_rows, hg.num_rows))
+    a_rows = csr(out_row, slot, (hg.num_rows, m_pad))
+    args = (ht.res_src, ht.res_mask, ht.res_t2b, ht.res_block_ptr,
+            hg.num_rows, hg.res_ob)
+    fixed_bytes = (ht.res_mask.numel() * 4 + ht.res_src.numel() * 4
+                   + ht.res_t2b.numel() * 4 + ht.res_block_ptr.numel() * 4)
     for d in (GIN_HIDDEN, 96, 16):
-        x = row_features(m_pad, d, torch.bfloat16, gen)
+        x = row_features(hg.num_rows, d, torch.bfloat16, gen)
         xf = x.float()
-        timed(rec, f"(512, 256) D={d} bf16 ({len(o)} nnz)",
+        h = row_features(hg.num_rows, d, torch.float32, gen)
+        x_bytes = x.numel() * 2 + d * hg.num_rows * 4
+        timed(rec, f"(512, 256) D={d} bf16 ({len(o)} nnz), from x",
               lambda: spmm_cuda.residual_combine(x, *args),
-              lambda: spmm_cuda.residual_combine_plain(
-                  x, ht.res_mask, ht.res_t2b, hg.num_rows, hg.res_ob),
-              lambda: torch.sparse.mm(a, xf),
-              ht.res_mask.numel() * 4 + x.numel() * 2
-              + ht.res_t2b.numel() * 4 + ht.res_block_ptr.numel() * 4
-              + d * hg.num_rows * 4, len(o) * d, record=d == GIN_HIDDEN)
+              lambda: spmm_cuda.residual_combine_plain(x, *args),
+              lambda: torch.sparse.mm(a_x, xf), fixed_bytes + x_bytes,
+              len(o) * d, record=d == GIN_HIDDEN)
+        timed(rec, f"(512, 256) D={d} bf16, from x + addend",
+              lambda: spmm_cuda.residual_combine(x, *args, h),
+              None, lambda: torch.addmm(h, a_x, xf),
+              fixed_bytes + x_bytes + h.numel() * 4, len(o) * d,
+              record=False, lib_name="torch.addmm (f32 CSR)")
+        rows = x.index_select(0, ht.res_src)
+        rows_f = rows.float()
+        log(f"  residual_combine (512, 256) D={d} bf16: the old yardstick, "
+            "torch.sparse.mm over the gathered slot rows: "
+            f"{time_ms(lambda: torch.sparse.mm(a_rows, rows_f)):.4f} ms")
+        del rows, rows_f
+
+    # --- the whole row-major aggregation against one library call --------
+    g = layouts[0][0]
+    a_all = torch.sparse_csr_tensor(
+        torch.from_numpy(np.asarray(g.row_pointers, dtype=np.int64)),
+        torch.from_numpy(np.asarray(g.column_index, dtype=np.int64)),
+        torch.ones(g.nnz, dtype=torch.float32),
+        (g.num_nodes, g.num_nodes)).to(DEVICE)
+    n = g.num_nodes
+    for d in (GIN_HIDDEN, 96):
+        # f32 features of bf16 values, as the model hands them over: the
+        # aggregation casts them to bf16 exactly and returns f32
+        x = row_features(hg.num_rows, d, torch.bfloat16, gen).float()
+        x[n:] = 0  # padding rows carry no features
+        xf = x[:n]
+        got = hybrid_aggregate(x, ht, False)[:n]
+        want = torch.sparse.mm(a_all, xf)
+        tol = ATOL + 2.0 ** -16 * torch.sparse.mm(a_all, xf.abs())
+        err = float((got - want).abs().max())
+        require(bool(((got - want).abs() <= tol).all()),
+                f"row-major aggregation D={d} disagrees with the edges")
+        ms = time_ms(lambda: hybrid_aggregate(x, ht, False))
+        lib = time_ms(lambda: torch.sparse.mm(a_all, xf))
+        log(f"  row-major aggregation (hot slab + residual) D={d}, bf16 "
+            "aggregation of f32 x: "
+            f"{ms:.4f} ms, torch.sparse.mm (f32 CSR, all {g.nnz} edges) "
+            f"{lib:.4f} ms; max_abs_err against it {err:.3e} "
+            "(tolerance 1e-4 + 2^-16·(A·|x|))")
+        del got, want, tol
 
 
 @contextlib.contextmanager
@@ -643,9 +787,7 @@ def plain_kernels():
         ),
         "slab_matmul": spmm_cuda.slab_matmul_plain,
         "fused_slab_matmul": spmm_cuda.fused_slab_matmul_plain,
-        "residual_combine": lambda rows, mask, t2b, _ptr, n, ob: (
-            spmm_cuda.residual_combine_plain(rows, mask, t2b, n, ob)
-        ),
+        "residual_combine": spmm_cuda.residual_combine_plain,
     }
     try:
         for n, fn in plain.items():
@@ -667,11 +809,29 @@ def model_inputs(graph, prop, hts, model: str, hidden: int):
     return x, y, mask, net
 
 
+@contextlib.contextmanager
+def counted_gathers():
+    """Count ``Tensor.index_select`` calls (each one gather launch on the
+    card) in the block; yields a list that gets one entry per call."""
+    calls = []
+    select = torch.Tensor.index_select
+
+    def counting(t, *args, **kwargs):
+        calls.append(tuple(t.shape))
+        return select(t, *args, **kwargs)
+
+    torch.Tensor.index_select = counting
+    try:
+        yield calls
+    finally:
+        torch.Tensor.index_select = select
+
+
 def first_step(graph, prop, hts, label: str, model: str = "gcn",
-               hidden: int = 16, rtol: float = STEP_RTOL) -> dict:
+               hidden: int = 16, rtol: float = STEP_RTOL):
     """One forward/backward on the kernels and on the plain versions, same
     weights: loss and gradients must agree.  Returns the kernel run's
-    launch counts."""
+    launch counts and its number of ``index_select`` gathers."""
     transposed = hts[0].transposed
     x, y, mask, net = model_inputs(graph, prop, hts, model, hidden)
 
@@ -682,14 +842,16 @@ def first_step(graph, prop, hts, label: str, model: str = "gcn",
         return loss.detach(), [p.grad.detach().clone() for p in net.parameters()]
 
     spmm_cuda.reset_launches()
-    loss_k, grads_k = run()
+    with counted_gathers() as gathers:
+        loss_k, grads_k = run()
     counts = dict(spmm_cuda.launches)
     with plain_kernels():
         loss_p, grads_p = run()
     rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     log(f"  {label} first step: loss {float(loss_k):.6f} (plain "
         f"{float(loss_p):.6f}, rel {rel:.2e}, bound {rtol:.2e}); launches "
-        f"{ {k: v for k, v in counts.items() if v} }")
+        f"{ {k: v for k, v in counts.items() if v} }, index_select "
+        f"gathers {len(gathers)}")
     require(math.isfinite(float(loss_k)) and rel <= rtol,
             f"{label}: first-step loss disagrees with the plain path")
     names = [n for n, _ in net.named_parameters()]
@@ -698,7 +860,7 @@ def first_step(graph, prop, hts, label: str, model: str = "gcn",
         log(f"  {label} grad {name}: max rel err {grel:.2e}")
         require(bool(torch.isfinite(gk).all()) and grel <= rtol,
                 f"{label}: gradient {name} disagrees with the plain path")
-    return counts
+    return counts, len(gathers)
 
 
 def train(graph, prop, hts, epochs: int, dry: int, model: str = "gcn",
@@ -812,12 +974,15 @@ def phase5(layouts, rm, recs) -> float:
         "auto layout, row-major")
     per_step = {**NO_LAUNCHES, "slab_matmul": 9, "residual_combine": 9}
     for agg, rtol in (("float32", STEP_RTOL), ("bfloat16", GIN_BF16_RTOL)):
-        counts = first_step(
+        counts, gathers = first_step(
             g, head, tuple(dataclasses.replace(h, agg_dtype=agg) for h in hts),
             f"GIN {agg} aggregation", model="gin", hidden=GIN_HIDDEN,
             rtol=rtol)
         require(counts == per_step, "one GIN step launches 9 hot slab and 9 "
                 "residual kernels (layer 1 has no backward aggregation)")
+        require(gathers == 9, "one GIN step gathers 9 times (the hot table "
+                "of each aggregation; the residual kernel gathers its slot "
+                "rows itself)")
     res, counts = train(g, head, hts, epochs=TIMED_EPOCHS, dry=5, model="gin",
                         hidden=GIN_HIDDEN)
     steps = res["step"]

@@ -58,28 +58,6 @@ struct RowAdd<uint16_t, DT> {
   }
 };
 
-// dst[0:n] = one 16-byte piece of a row, widened to f32: 4 f32 or 8 bf16
-// (the last argument only picks the element type).
-__device__ __forceinline__ void widen_piece(const uint4& q, float* dst,
-                                            const float*) {
-  *reinterpret_cast<float4*>(dst) = make_float4(
-      __uint_as_float(q.x), __uint_as_float(q.y), __uint_as_float(q.z),
-      __uint_as_float(q.w));
-}
-__device__ __forceinline__ void widen_piece(const uint4& q, float* dst,
-                                            const uint16_t*) {
-  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-  float4* v = reinterpret_cast<float4*>(dst);
-  v[0] = make_float4(__uint_as_float(w[0] << 16),
-                     __uint_as_float(w[0] & 0xFFFF0000u),
-                     __uint_as_float(w[1] << 16),
-                     __uint_as_float(w[1] & 0xFFFF0000u));
-  v[1] = make_float4(__uint_as_float(w[2] << 16),
-                     __uint_as_float(w[2] & 0xFFFF0000u),
-                     __uint_as_float(w[3] << 16),
-                     __uint_as_float(w[3] & 0xFFFF0000u));
-}
-
 // acc[0:DT] += row[0:DT] for a row staged in shared memory as f32.
 template <int DT>
 __device__ __forceinline__ void add_shared_row(const float* row, float* acc) {
@@ -91,26 +69,6 @@ __device__ __forceinline__ void add_shared_row(const float* row, float* acc) {
     acc[4 * i + 1] += q.y;
     acc[4 * i + 2] += q.z;
     acc[4 * i + 3] += q.w;
-  }
-}
-
-// dst[0:n] = acc[0:n]: one thread's run of a row-major output row, n <= DT.
-// A full run that starts 16-byte aligned (``vec``) goes out as float4
-// stores, so a thread writes whole 32-byte sectors; otherwise one float at
-// a time (consecutive threads' runs still tile the row-major output).
-template <int DT>
-__device__ __forceinline__ void store_run(float* __restrict__ dst,
-                                          const float* acc, int n, bool vec) {
-  if (vec && n == DT) {
-    float4* v = reinterpret_cast<float4*>(dst);
-#pragma unroll
-    for (int i = 0; i < DT / 4; ++i)
-      v[i] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
-                         acc[4 * i + 3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < DT; ++j)
-      if (j < n) dst[j] = acc[j];
   }
 }
 

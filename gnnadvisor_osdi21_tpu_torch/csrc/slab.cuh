@@ -1,17 +1,17 @@
-// The bit-slab walk shared by the transposed (slab_t.cu) and row-major
-// (slab.cu) slab kernels.
+// The slab operands of the transposed (slab_t.cu) and row-major (slab.cu)
+// slab kernels, and the transposed kernel's bit-slab walk.
 //
 // A slab is uint16 [W16, R] with graph rows on the minor axis; slab column
-// j sits in word j % W16 at bit j // W16.  Both orientations give one
-// thread one graph row r (an output column of the transposed product, an
-// output row of the row-major one) and one feature tile: the thread reads
+// j sits in word j % W16 at bit j // W16.  The transposed walk gives one
+// thread one graph row r (an output column of the product) and one
+// feature tile: the thread reads
 // bits[w, r] for every word w (consecutive threads read consecutive
 // addresses, so every load is coalesced), eight words ahead, skips zero
 // words, and for each set bit adds one row of a row-major table [rows, Dp]
 // into DT f32 register accumulators.  The hot wiring reads a global K-row
 // table; the diagonal wiring reads, for row r, table rows
-// [(r / B) * B, (r / B + 1) * B).  The orientations differ only in where
-// the table comes from and in how the thread writes its result.
+// [(r / B) * B, (r / B + 1) * B).  The row-major kernel streams the
+// slab through shared memory instead (slab.cu).
 #pragma once
 
 #include "common.cuh"

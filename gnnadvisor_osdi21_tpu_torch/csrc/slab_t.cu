@@ -30,8 +30,7 @@
 // table in shared memory would read every row of it for every block of
 // threads, which costs more than the few rows a column's set bits need.
 // D wider than 32 is split over gridDim.y in tiles of 32 features.
-// The walk over a column's words is add_slab (slab.cuh), shared with the
-// row-major kernel (slab.cu).
+// The walk over a column's words is add_slab (slab.cuh).
 
 #include "slab.cuh"
 

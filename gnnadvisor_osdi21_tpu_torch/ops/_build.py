@@ -47,8 +47,11 @@ SIGNATURES = {
     "gnna_fused_slab_matmul": (
         _P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P,
     ),
-    # mask, W, num_tiles, S, rows, D, block_ptr, num_rows, bf16, out, stream
-    "gnna_residual_combine": (_P, _I, _I, _I, _P, _I, _P, _I, _I, _P, _P),
+    # mask, W, num_tiles, S, x, Dx, src, D, block_ptr, num_rows, addend,
+    # bf16, out, stream
+    "gnna_residual_combine": (
+        _P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P,
+    ),
     # the probes' dense 0/1 slabs (csrc/probe_slab.cu):
     # bits, w32, R, x_t, block_rows, out, stream
     "gnna_bit_slab_t": (_P, _I, _I, _P, _I, _P, _P),

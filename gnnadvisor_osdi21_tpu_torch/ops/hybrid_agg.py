@@ -9,8 +9,11 @@ The port of ``gnnadvisor_osdi21_tpu/ops/hybrid_agg.py``, per layout
 - hot tier: ``spmm_cuda.slab_matmul[_t]`` against the gathered hot-node
   table,
 - both at once: ``spmm_cuda.fused_slab_matmul[_t]``,
-- residual tier: one or two ``index_select`` gathers (XLA ops outside the
-  kernel in the JAX package too) and ``spmm_cuda.residual_combine[_t]``.
+- residual tier: transposed, one or two ``index_select`` gathers (XLA ops
+  outside the kernel in the JAX package too) and
+  ``spmm_cuda.residual_combine_t``; row-major, ``spmm_cuda.residual_combine``
+  alone, which gathers the slot rows from x by ``res_src`` itself and adds
+  the slab tiers' sum.
 
 Every reduction is deterministic; there are no atomics.  All arrays live
 in the padded row space [num_rows]; the loss masks padding rows out.
@@ -39,21 +42,28 @@ class HybridTensors:
     fields.  Only the residual mask that the layout's kernels read is on
     the device: ``res_mask`` when row-major, ``res_mask_s`` when
     ``transposed``.  Differences: ``res_block_ptr`` holds each output
-    block's tile range for the residual kernels, and the TPU kernel
-    geometry (``block_rows``, ``feature_tile``) and ``gemm_dtype`` are
-    gone: the kernels choose their own geometry, and GEMMs run in f32."""
+    block's tile range for the residual kernels; a row-major layout holds
+    each slot's row of x in ``res_src`` (``res_gather[res_dst]``, whatever
+    the JAX gather's stages) for its kernel's own gather, in place of
+    ``res_gather``/``res_dst``, which only the transposed layout keeps;
+    and the TPU kernel geometry (``block_rows``, ``feature_tile``) and
+    ``gemm_dtype`` are gone: the kernels choose their own geometry, and
+    GEMMs run in f32."""
 
     degrees: torch.Tensor  # [R] f32
     row_mask: torch.Tensor  # [R] f32
     diag_bits: Optional[torch.Tensor]  # [B/16, R] uint16 or None
     hot_bits: Optional[torch.Tensor]  # [K/16, R] uint16 or None
     hot_ids: Optional[torch.Tensor]  # [K] int64 or None
-    res_gather: Optional[torch.Tensor]  # [Ud] int64 unique dst rows (stage 1)
-    res_dst: Optional[torch.Tensor]  # [M_pad] int64 (stage 2, or full rows)
+    # transposed: [Ud] int64 unique dst rows (stage 1), [M_pad] int64
+    # (stage 2, or full rows)
+    res_gather: Optional[torch.Tensor]
+    res_dst: Optional[torch.Tensor]
     res_mask: Optional[torch.Tensor]  # [res_ob/32, M_pad] uint32 (row-major)
     res_mask_s: Optional[torch.Tensor]  # [res_tile/16, T*res_ob] uint16
     res_t2b: Optional[torch.Tensor]  # [T] int32 tile -> out block, sorted
     res_block_ptr: Optional[torch.Tensor]  # [num_rows/res_ob + 1] int32
+    res_src: Optional[torch.Tensor]  # [M_pad] int32 slot -> x row (row-major)
     num_rows: int = 0
     real_nodes: int = 0
     diag_b: int = 0
@@ -79,11 +89,13 @@ def build_hybrid_tensors(
     """Move a layout onto ``device`` (None: the card), for the transposed
     kernels or, with ``transposed=False``, the row-major ones.
 
-    ``agg_feature_dim`` is the width this layer's aggregation runs at; it
-    picks the residual gather per layer: a single gather from full x
-    (``res_dst`` holds full row ids, ``res_gather`` is None) while
-    ``slots x width`` stays within ``RES_SINGLE_MAX_CELLS``, else the
-    two-stage chain (hybrid_agg.py:106-125 in the JAX package)."""
+    ``agg_feature_dim`` is the width this layer's aggregation runs at; on
+    the transposed layout it picks the residual gather per layer: a single
+    gather from full x (``res_dst`` holds full row ids, ``res_gather`` is
+    None) while ``slots x width`` stays within ``RES_SINGLE_MAX_CELLS``,
+    else the two-stage chain (hybrid_agg.py:106-125 in the JAX package).
+    The row-major kernel gathers each slot's row of x once, by
+    ``res_src``, at any width."""
     if agg_dtype not in AGG_DTYPES:
         raise ValueError(f"agg_dtype must be one of {sorted(AGG_DTYPES)}")
     dev = resolve_device(device)
@@ -98,19 +110,28 @@ def build_hybrid_tensors(
         block_ptr = np.searchsorted(
             hg.res_t2b, np.arange(n_blocks + 1)
         ).astype(np.int32)
+    res_src = None
+    if has_res and not transposed:
+        # one id per slot for the row-major kernel's gather; pad slots read
+        # row res_gather[0], which their empty masks never add
+        res_src = hg.res_gather[hg.res_dst].astype(np.int32)
+        if not (res_src.min() >= 0 and res_src.max() < hg.num_rows):
+            raise ValueError("residual slot ids fall outside the layout's "
+                             f"{hg.num_rows} rows")
     return HybridTensors(
         degrees=put(hg.degrees),
         row_mask=put(hg.row_mask),
         diag_bits=put(hg.diag_bits) if hg.diag_b else None,
         hot_bits=put(hg.hot_bits) if hg.hot_k else None,
         hot_ids=put(hg.hot_ids, torch.int64) if hg.hot_k else None,
-        **residual_gather(hg, dev, agg_feature_dim),
+        **residual_gather(hg, dev, agg_feature_dim, transposed),
         # only the mask the chosen kernels read (the other is 77 MB at
         # amazon0505 scale): hybrid_agg.py:110-114 in the JAX package
         res_mask=put(hg.res_mask) if has_res and not transposed else None,
         res_mask_s=put(hg.res_mask_s) if has_res and transposed else None,
         res_t2b=put(hg.res_t2b) if has_res else None,
         res_block_ptr=put(block_ptr) if has_res else None,
+        res_src=None if res_src is None else put(res_src),
         num_rows=hg.num_rows,
         real_nodes=hg.real_nodes,
         diag_b=hg.diag_b,
@@ -132,14 +153,17 @@ def build_layer_tensors(
 ) -> tuple[HybridTensors, HybridTensors]:
     """The (input-layer, hidden-layer) tensors of one layout, for layers
     that aggregate at widths ``agg_dims``: both layers share the device
-    arrays, and differ in their residual gather only where the two widths
-    straddle the single-stage limit (``single_stage``), as in the JAX
-    decider (tuner/decider.py:349-382)."""
+    arrays; transposed, they differ in their residual gather where the
+    two widths straddle the single-stage limit (``single_stage``), as in
+    the JAX decider (tuner/decider.py:349-382).  Row-major, both layers
+    are one tensor set (``res_src`` serves every width)."""
     ht_in = build_hybrid_tensors(
         hg, device=device, agg_dtype=agg_dtype, agg_feature_dim=agg_dims[0],
         transposed=transposed,
     )
-    if single_stage(hg, agg_dims[0]) == single_stage(hg, agg_dims[1]):
+    if not transposed or (
+        single_stage(hg, agg_dims[0]) == single_stage(hg, agg_dims[1])
+    ):
         return ht_in, ht_in
     return ht_in, dataclasses.replace(
         ht_in, **residual_gather(hg, device, agg_dims[1])
@@ -156,11 +180,13 @@ def single_stage(hg: HybridGraph, agg_feature_dim: int | None) -> bool:
 
 
 def residual_gather(
-    hg: HybridGraph, device, agg_feature_dim: int | None
+    hg: HybridGraph, device, agg_feature_dim: int | None,
+    transposed: bool = True,
 ) -> dict[str, Optional[torch.Tensor]]:
-    """``res_gather``/``res_dst`` for a layer that aggregates at width
-    ``agg_feature_dim``."""
-    if hg.res_dst.size == 0:
+    """``res_gather``/``res_dst`` for a transposed layer that aggregates
+    at width ``agg_feature_dim``; None for a row-major layer, whose kernel
+    reads ``res_src``."""
+    if hg.res_dst.size == 0 or not transposed:
         return {"res_gather": None, "res_dst": None}
     dev = resolve_device(device)
     if single_stage(hg, agg_feature_dim):
@@ -216,7 +242,8 @@ def residual_tier_t(src_t: torch.Tensor, ht: HybridTensors) -> torch.Tensor:
 
 def _tiers_rowmajor(x: torch.Tensor, ht: HybridTensors) -> torch.Tensor:
     """Sum of the tiers ([R, D] in and out, no degree scaling); both slab
-    tiers run as one fused launch."""
+    tiers run as one fused launch, and the residual kernel adds their sum
+    to its own (no separate ``h + r``)."""
     out = None
     if ht.diag_b and ht.hot_k:
         x_hot = x.index_select(0, ht.hot_ids)
@@ -232,27 +259,24 @@ def _tiers_rowmajor(x: torch.Tensor, ht: HybridTensors) -> torch.Tensor:
             x_hot = x.index_select(0, ht.hot_ids)
             h = spmm_cuda.slab_matmul(ht.hot_bits, x_hot)
             out = h if out is None else out + h
-    if ht.res_dst is not None:
-        r = residual_tier(x, ht)
-        out = r if out is None else out + r
+    if ht.res_t2b is not None:
+        out = residual_tier(x, ht, addend=out)
     if out is None:
         out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     return out
 
 
-def residual_tier(src: torch.Tensor, ht: HybridTensors) -> torch.Tensor:
+def residual_tier(
+    src: torch.Tensor, ht: HybridTensors, addend: torch.Tensor | None = None
+) -> torch.Tensor:
     """Row-major residual tier over the gather source ``src [table, D]``
-    (the JAX package's ``_residual_aggregate``, hybrid_agg.py:231-285).
-    The combine zeroes the blocks no tile visits, as ``residual_tier_t``'s
-    does."""
-    if ht.res_gather is None:
-        rows = src.index_select(0, ht.res_dst)  # [M_pad, D]
-    else:
-        compact = src.index_select(0, ht.res_gather)  # [Ud, D]
-        rows = compact.index_select(0, ht.res_dst)  # [M_pad, D]
+    (the JAX package's ``_residual_aggregate``, hybrid_agg.py:231-285),
+    plus ``addend`` when given.  The kernel gathers the slot rows by
+    ``res_src`` itself, and zeroes the blocks no tile visits, as
+    ``residual_tier_t``'s does."""
     return spmm_cuda.residual_combine(
-        rows, ht.res_mask, ht.res_t2b, ht.res_block_ptr, ht.num_rows,
-        ht.res_ob,
+        src, ht.res_src, ht.res_mask, ht.res_t2b, ht.res_block_ptr,
+        ht.num_rows, ht.res_ob, addend=addend,
     )
 
 

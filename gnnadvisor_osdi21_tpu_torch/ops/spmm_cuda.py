@@ -20,6 +20,9 @@ transposed ``[D, R]``: ``slab_matmul_t`` (:469) -> csrc/slab_t.cu,
 ``slab_matmul`` (:143, with its ``hot_slab_matmul`` and
 ``diag_slab_matmul`` wirings) -> csrc/slab.cu, ``fused_slab_matmul``
 (:259) -> csrc/slab.cu, ``residual_combine`` (:354) -> csrc/residual.cu.
+The row-major ``residual_combine`` also takes over its caller's slot
+gathers (it reads the slot rows of x by ``res_src``) and, given an
+addend, the tier sum.
 
 Bit layout: a slab is uint16 ``[K/16, R]`` with column j in word
 ``j % (K/16)`` at bit ``j // (K/16)`` (both orientations); a transposed
@@ -44,7 +47,7 @@ KERNELS = (
 launches = dict.fromkeys(KERNELS, 0)
 
 FEATURE_DTYPES = (torch.float32, torch.bfloat16)
-MAX_RES_TILE = 256  # slots per residual tile the CUDA kernel stages
+MAX_RES_TILE = 256  # slots per residual tile the CUDA kernels stage
 
 
 def reset_launches() -> None:
@@ -375,11 +378,16 @@ def fused_slab_matmul_plain(
 
 
 def residual_combine_plain(
-    rows: torch.Tensor, res_mask: torch.Tensor, t2b: torch.Tensor,
-    num_rows: int, res_ob: int,
+    x: torch.Tensor, res_src: torch.Tensor, res_mask: torch.Tensor,
+    t2b: torch.Tensor, block_ptr: torch.Tensor, num_rows: int, res_ob: int,
+    addend: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """out[num_rows, D] f32: every tile's unpacked [OB, S] mask @ its rows,
-    summed into the tile's output block; blocks no tile visits are 0."""
+    """out[num_rows, D] f32: the slot rows ``x[res_src]``, and for every
+    tile its unpacked [OB, S] mask @ its rows, summed into the tile's
+    output block; blocks no tile visits are 0.  With ``addend``, ``addend
+    + out``.  ``block_ptr`` is the kernel's; the plain version finds each
+    block's tiles from ``t2b``."""
+    rows = x.index_select(0, res_src)
     m_pad, d = rows.shape
     t = t2b.shape[0]
     s = m_pad // t
@@ -392,7 +400,8 @@ def residual_combine_plain(
         t2b.to(torch.int64)[None, :]
         == torch.arange(n_blocks, device=t2b.device)[:, None]
     ).to(torch.float32)
-    return (onehot @ chunks).reshape(num_rows, d)
+    out = (onehot @ chunks).reshape(num_rows, d)
+    return out if addend is None else addend + out
 
 
 def slab_matmul(
@@ -415,7 +424,17 @@ def slab_matmul(
         )
     if _on_cpu(bits_t, x):
         return slab_matmul_plain(bits_t, x, table_block_rows)
+    _check_stream(r)
     return _slab_matmul_cuda(bits_t, x, table_block_rows or 0)
+
+
+def _check_stream(r: int) -> None:
+    """What the row-major slab kernel takes: rows in whole 16-byte pieces
+    of the slab (its bulk copies move multiples of 16 bytes)."""
+    if r % 8:
+        raise ValueError(
+            f"slab of {r} rows: the kernel takes a multiple of 8 rows"
+        )
 
 
 def _slab_matmul_cuda(bits_t, x, block: int) -> torch.Tensor:
@@ -456,6 +475,7 @@ def fused_slab_matmul(
         )
     if _on_cpu(diag_bits_t, hot_bits_t, x, x_hot):
         return fused_slab_matmul_plain(diag_bits_t, hot_bits_t, x, x_hot, diag_b)
+    _check_stream(r)
     return _fused_slab_matmul_cuda(diag_bits_t, hot_bits_t, x, x_hot, diag_b)
 
 
@@ -478,16 +498,25 @@ def _fused_slab_matmul_cuda(diag_bits_t, hot_bits_t, x, x_hot, diag_b):
 
 
 def residual_combine(
-    rows: torch.Tensor, res_mask: torch.Tensor, t2b: torch.Tensor,
-    block_ptr: torch.Tensor, num_rows: int, res_ob: int,
+    x: torch.Tensor, res_src: torch.Tensor, res_mask: torch.Tensor,
+    t2b: torch.Tensor, block_ptr: torch.Tensor, num_rows: int, res_ob: int,
+    addend: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """out[num_rows, D] f32: residual-tier combine, features row-major.
+    """out[num_rows, D] f32: residual-tier combine, features row-major,
+    with the slot gather and, given ``addend``, the tier sum in the kernel.
 
-    ``rows`` [T·S, D] gathered slot rows; ``res_mask`` uint32
-    [OB/32, T·S]; ``t2b`` int32 [T] tile -> out block, sorted ascending;
-    ``block_ptr`` int32 [num_rows/OB + 1], the tile range of each block.
-    Blocks with no tile come out as zeros."""
-    _check_features("rows", rows)
+    ``x`` [rows, D] the gather source; ``res_src`` int32 [T·S], the row of
+    x each slot reads (every id, pad slots included, a row of x: another
+    id raises, at once on the CPU and on the card as a device-side assert
+    at the next synchronisation, as ``index_select`` does);
+    ``res_mask`` uint32 [OB/32, T·S]; ``t2b`` int32 [T] tile -> out block,
+    sorted ascending; ``block_ptr`` int32 [num_rows/OB + 1], the tile
+    range of each block; ``addend`` None or f32 [num_rows, D], added to
+    the tier's sum (``addend + out``).  Blocks with no tile come out as
+    zeros (as ``addend``).  ``x = rows`` with ``res_src = arange(T·S)`` is
+    the combine of gathered rows."""
+    _check_features("x", x)
+    _check_index("res_src", res_src)
     if res_mask.dtype != torch.uint32 or res_mask.dim() != 2:
         raise ValueError(f"res_mask must be a 2-D uint32 tensor, got "
                          f"{res_mask.dtype} {tuple(res_mask.shape)}")
@@ -495,34 +524,65 @@ def residual_combine(
         raise ValueError("res_mask must be contiguous")
     _check_index("t2b", t2b)
     _check_index("block_ptr", block_ptr)
-    t, m_pad = t2b.shape[0], rows.shape[0]
+    t, m_pad = t2b.shape[0], res_src.shape[0]
     if (
         res_ob <= 0 or num_rows % res_ob or t == 0 or m_pad % t
         or tuple(res_mask.shape) != (res_ob // 32, m_pad) or res_ob % 32
         or block_ptr.shape[0] != num_rows // res_ob + 1
     ):
         raise ValueError(
-            f"residual stream: {t} tiles, rows {tuple(rows.shape)}, mask "
-            f"{tuple(res_mask.shape)}, block_ptr {tuple(block_ptr.shape)}, "
-            f"num_rows {num_rows}, res_ob {res_ob}"
+            f"residual stream: {t} tiles, res_src {tuple(res_src.shape)}, "
+            f"mask {tuple(res_mask.shape)}, block_ptr "
+            f"{tuple(block_ptr.shape)}, num_rows {num_rows}, res_ob {res_ob}"
         )
-    if _on_cpu(rows, res_mask, t2b, block_ptr):
-        return residual_combine_plain(rows, res_mask, t2b, num_rows, res_ob)
-    if m_pad // t > MAX_RES_TILE:
-        raise ValueError(f"residual tile of {m_pad // t} slots exceeds the "
-                         f"kernel's {MAX_RES_TILE}")
-    return _residual_combine_cuda(rows, res_mask, block_ptr, t, num_rows)
+    if addend is not None and (
+        addend.dtype != torch.float32
+        or tuple(addend.shape) != (num_rows, x.shape[1])
+        or not addend.is_contiguous()
+    ):
+        raise ValueError(
+            f"addend must be a contiguous float32 [{num_rows}, {x.shape[1]}] "
+            f"tensor, got {addend.dtype} {tuple(addend.shape)}"
+        )
+    operands = (x, res_src, res_mask, t2b, block_ptr) + (
+        () if addend is None else (addend,))
+    if _on_cpu(*operands):
+        # the ids are checked here; on the card the kernel asserts each id
+        # it reads (a check here would wait for the card)
+        if m_pad and (int(res_src.min()) < 0
+                      or int(res_src.max()) >= x.shape[0]):
+            raise ValueError(f"res_src holds ids outside x's {x.shape[0]} "
+                             "rows")
+        return residual_combine_plain(x, res_src, res_mask, t2b, block_ptr,
+                                      num_rows, res_ob, addend)
+    s = m_pad // t
+    if s > MAX_RES_TILE or s % 4:
+        raise ValueError(f"residual tile of {s} slots: the kernel takes a "
+                         f"multiple of 4 up to {MAX_RES_TILE}")
+    return _residual_combine_cuda(x, res_src, res_mask, block_ptr, t,
+                                  num_rows, addend)
 
 
-def _residual_combine_cuda(rows, res_mask, block_ptr, t, num_rows):
-    m_pad, d = rows.shape
-    out = torch.empty((num_rows, d), dtype=torch.float32, device=rows.device)
-    with torch.cuda.device(rows.device):
+def _gather_table(x: torch.Tensor) -> torch.Tensor:
+    """x with rows of a multiple of 16 bytes (the kernel copies 16-byte
+    pieces): x itself when they already are, else a zero-padded copy."""
+    return _row_table(x, _round_up(x.shape[1], 16 // x.element_size()))
+
+
+def _residual_combine_cuda(x, res_src, res_mask, block_ptr, t, num_rows,
+                           addend):
+    d = x.shape[1]
+    table = _gather_table(x)
+    out = torch.empty((num_rows, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
         rc = _build.library().gnna_residual_combine(
-            res_mask.data_ptr(), res_mask.shape[0], t, m_pad // t,
-            rows.data_ptr(), d, block_ptr.data_ptr(), num_rows,
-            int(rows.dtype == torch.bfloat16), out.data_ptr(),
-            _stream(rows.device),
+            res_mask.data_ptr(), res_mask.shape[0], t,
+            res_src.shape[0] // t, table.data_ptr(), x.shape[0],
+            table.shape[1],
+            res_src.data_ptr(), d, block_ptr.data_ptr(), num_rows,
+            None if addend is None else addend.data_ptr(),
+            int(x.dtype == torch.bfloat16), out.data_ptr(),
+            _stream(x.device),
         )
     _build.check("residual_combine", rc)
     launches["residual_combine"] += 1

@@ -132,8 +132,9 @@ class InputProperty:
         """Build the layout and put it on ``device`` (None: the card), once
         per layer's residual gather: GCN aggregates at the hidden width,
         then at the class count; GIN at the input width, then at the
-        hidden one (aggregation precedes its GEMM); and each width may pick
-        another gather (``hybrid_agg.single_stage``)."""
+        hidden one (aggregation precedes its GEMM); and on the transposed
+        layout each width may pick another gather
+        (``hybrid_agg.single_stage``)."""
         if self.layer_input is None:
             raise RuntimeError("call decider() first")
         dev = resolve_device(device)

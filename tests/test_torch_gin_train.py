@@ -141,7 +141,10 @@ def test_decider_gathers_per_layer_like_jax(model, monkeypatch):
     """GIN aggregates at the input width, then at the hidden one; GCN at
     the hidden width, then at the class count.  With the single-stage
     limit between 8 and 12 columns, GIN's layers straddle it and GCN's do
-    not; both deciders give each layer the same residual gather."""
+    not: the JAX decider gives GIN's layers different residual gathers.
+    The port's row-major kernel gathers each slot's row of x by
+    ``res_src``, the JAX gathers' ids composed, at any width: both
+    layers share one tensor set, and it reads what each JAX layer does."""
     g = synthesize_graph(6000, 60000, num_features=IN, num_classes=CLASSES,
                          kind="web", seed=2)
     kw = dict(hidden_dim=HIDDEN, diag_b=0, hot_k=0, model=model,
@@ -157,13 +160,15 @@ def test_decider_gathers_per_layer_like_jax(model, monkeypatch):
     ht_in, ht_hid = tp.build_tensors(device="cpu")
     jin, jhid = JaxProperty(g, probe=False, **kw).decider().build_tensors()
     for t, j in ((ht_in, jin), (ht_hid, jhid)):
-        assert (t.res_gather is None) == (j.res_gather is None)
-        assert np.array_equal(t.res_dst.numpy(), np.asarray(j.res_dst))
+        assert t.res_gather is None and t.res_dst is None
+        dst = np.asarray(j.res_dst)
+        rows = dst if j.res_gather is None else np.asarray(j.res_gather)[dst]
+        assert np.array_equal(t.res_src.numpy(), rows)
         assert np.array_equal(t.res_mask.numpy(), np.asarray(j.res_mask))
     straddles = model == "gin"
-    assert (ht_in.res_gather is not None) == straddles
-    assert ht_hid.res_gather is None
-    assert ht_hid.res_mask is ht_in.res_mask
+    assert (jin.res_gather is not None) == straddles
+    assert jhid.res_gather is None
+    assert ht_hid is ht_in
 
 
 def test_unknown_model_is_refused(skewed_graph):

@@ -24,8 +24,15 @@ from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import build_hybrid
 from gnnadvisor_osdi21_tpu_torch.ops import spmm_cuda
 from gnnadvisor_osdi21_tpu_torch.ops.aggregate import aggregate
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import (
-    build_hybrid_tensors, hybrid_aggregate,
+    build_hybrid_tensors, build_layer_tensors, hybrid_aggregate,
 )
+
+
+def jax_slot_rows(jt) -> np.ndarray:
+    """The JAX layer's residual slot ids composed to rows of x: its
+    ``res_dst`` when single-stage, else ``res_gather[res_dst]``."""
+    dst = np.asarray(jt.res_dst)
+    return dst if jt.res_gather is None else np.asarray(jt.res_gather)[dst]
 
 
 def assert_close(got: np.ndarray, want: np.ndarray) -> None:
@@ -87,7 +94,11 @@ def test_rowmajor_hybrid_aggregate_matches_jax(graphs, layout, stage,
                      agg_feature_dim=width)
     tt = build_hybrid_tensors(thg, device="cpu", agg_dtype=agg_dtype,
                               agg_feature_dim=width, transposed=False)
-    assert (tt.res_gather is None) == (stage == "single")
+    # the JAX layer gathers in one or two stages; the port's kernel reads
+    # the composed ids, the same at every width
+    assert (jt.res_gather is None) == (stage == "single")
+    assert tt.res_gather is None and tt.res_dst is None
+    assert np.array_equal(tt.res_src.numpy(), jax_slot_rows(jt))
     x = np.random.default_rng(1).standard_normal(
         (thg.num_rows, 22)).astype(np.float32)
     for norm in (False, True):
@@ -117,8 +128,8 @@ def test_rowmajor_tiers_launch_the_rowmajor_kernels(graphs, monkeypatch):
     for name in spmm_cuda.KERNELS:
         fn = getattr(spmm_cuda, name)
         monkeypatch.setattr(spmm_cuda, name,
-                            lambda *a, _n=name, _f=fn: calls.append(_n)
-                            or _f(*a))
+                            lambda *a, _n=name, _f=fn, **kw: calls.append(_n)
+                            or _f(*a, **kw))
     kw = dict(diag_b=512, hot_k=64, res_ob=128, res_tile=32)
     tt = build_hybrid_tensors(build_hybrid(graphs["spread"], **kw),
                               device="cpu", transposed=False)
@@ -141,3 +152,77 @@ def test_rowmajor_aggregate_backward_is_the_same_aggregation(graphs):
         xt = torch.from_numpy(x).requires_grad_(True)
         aggregate(xt, tt, norm).backward(torch.from_numpy(g))
         assert_close(xt.grad.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize(
+    "layout", LAYOUTS, ids=[f"{lay[0]}-{lay[1]}" for lay in LAYOUTS]
+)
+def test_rowmajor_tiers_gather_only_the_hot_table(graphs, layout,
+                                                  monkeypatch):
+    """Outside the kernels the row-major tiers gather the hot table alone
+    (one ``index_select`` when the layout has a hot tier, else none): the
+    residual kernel reads its slot rows from x by ``res_src`` itself, and
+    adds the slab tiers' sum, so no separate sum runs either."""
+    _, name, kw, _ = layout
+    tt = build_hybrid_tensors(build_hybrid(graphs[name], **kw),
+                              device="cpu", transposed=False)
+    gathers, adds, inside = [], [], []
+    select, add = torch.Tensor.index_select, torch.Tensor.__add__
+
+    def counting_select(t, *a, **k):
+        if not inside:
+            gathers.append(a)
+        return select(t, *a, **k)
+
+    def counting_add(t, *a, **k):
+        if not inside:
+            adds.append(a)
+        return add(t, *a, **k)
+
+    for kname in spmm_cuda.KERNELS:
+        fn = getattr(spmm_cuda, kname)
+
+        def kernel(*a, _f=fn, **k):
+            inside.append(1)
+            try:
+                return _f(*a, **k)
+            finally:
+                inside.pop()
+
+        monkeypatch.setattr(spmm_cuda, kname, kernel)
+    monkeypatch.setattr(torch.Tensor, "index_select", counting_select)
+    monkeypatch.setattr(torch.Tensor, "__add__", counting_add)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (tt.num_rows, 6)).astype(np.float32))
+    hybrid_aggregate(x, tt, False)
+    assert tt.res_src is not None
+    assert len(gathers) == (1 if tt.hot_k else 0)
+    assert adds == []
+
+
+@pytest.mark.parametrize("stage", ["single", "two"])
+def test_rowmajor_res_src_is_the_composed_gather(graphs, stage):
+    """``res_src`` is ``res_gather[res_dst]``, the ids the JAX layer's one-
+    or two-stage gather reads in the end, one int32 row of x per slot, pad
+    slots included; a row-major layout keeps no other residual ids, and
+    its layers, whatever their widths, share one tensor set.  The
+    transposed layout has no ``res_src``."""
+    graph = graphs["spread"]
+    kw = dict(diag_b=0, hot_k=64, res_ob=128, res_tile=32)
+    hg = build_hybrid(graph, **kw)
+    width = None if stage == "single" else 10**9
+    jt = jax_tensors(jax_build(graph, probe=False, **kw), transposed=False,
+                     agg_feature_dim=width)
+    assert (jt.res_gather is None) == (stage == "single")
+    rm = build_hybrid_tensors(hg, device="cpu", transposed=False,
+                              agg_feature_dim=width)
+    assert rm.res_gather is None and rm.res_dst is None
+    src = rm.res_src.numpy()
+    assert rm.res_src.dtype == torch.int32
+    assert np.array_equal(src, hg.res_gather[hg.res_dst])
+    assert np.array_equal(src, jax_slot_rows(jt))
+    assert src.min() >= 0 and src.max() < hg.num_rows
+    ht_in, ht_hid = build_layer_tensors(hg, (width or 1, 1), device="cpu",
+                                        transposed=False)
+    assert ht_in is ht_hid and np.array_equal(ht_in.res_src.numpy(), src)
+    assert build_hybrid_tensors(hg, device="cpu").res_src is None

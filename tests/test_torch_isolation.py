@@ -156,8 +156,10 @@ def test_cuda_tensors_never_reach_the_plain_version(kernel, monkeypatch):
             _cuda_typed(torch.zeros((64, 8))), 64)
     else:
         mask = _cuda_typed(torch.zeros((8, 2 * 32), dtype=torch.uint32))
-        rows = _cuda_typed(torch.zeros((2 * 32, 8)))
-        got = spmm_cuda.residual_combine(rows, mask, t2b, ptr, 512, 256)
+        src = _cuda_typed(torch.arange(2 * 32, dtype=torch.int32))
+        got = spmm_cuda.residual_combine(
+            _cuda_typed(torch.zeros((100, 8))), src, mask, t2b, ptr, 512, 256,
+            addend=_cuda_typed(torch.zeros((512, 8))))
     assert got == "launched" and launched == [kernel]
 
 
