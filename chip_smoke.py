@@ -13,9 +13,16 @@ PyTorch version on the card:
   same graph with fixed tiers (diag 512, hot 512), and a 10k power-law
   graph;
 - phase 2: each transposed kernel against its plain version at the
-  layouts' shapes, for D in {16, 22, 5} and f32/bf16, with its time, its
-  byte bound and the time of ``torch.sparse.mm`` over the same edges;
-  then each row-major kernel the same way, for D in {96, 64, 22, 16, 5}
+  layouts' shapes, for D in {16, 22, 5} and f32/bf16, x_t given as the
+  view of a row-major table, as the aggregation hands it over (the
+  residual combine gathering from x by its slot ids, without and with an
+  addend, and stopping, in a process of its own, on a slot id past x),
+  with its time at D = 16 and 22, its byte
+  bound and the time of ``torch.sparse.mm`` over the same edges (the
+  residual's over its edges read from x, and ``torch.addmm`` with the
+  addend), and the whole transposed aggregation against
+  ``torch.sparse.mm`` over all of the graph's edges; then each row-major
+  kernel the same way, for D in {96, 64, 22, 16, 5}
   (the slab kernels also at 500 and 1433, wider than one 256-column
   chunk; the residual combine gathering from x by its slot ids and over
   gathered rows, each without and with an addend, timed against
@@ -24,7 +31,9 @@ PyTorch version on the card:
   aggregation against ``torch.sparse.mm`` over all of the graph's edges;
 - phase 3: GCN 96 -> 16 -> 22 training on the auto layout (transposed):
   the first step's loss and gradients against the plain path, launch
-  counts, and ``epoch_ms`` over timed epochs;
+  counts and ``index_select`` gathers (the hot table's alone),
+  ``epoch_ms`` over timed epochs, and the device time of three steps by
+  kernel (``torch.profiler``);
 - phase 4: the other transposed wirings (fused diag+hot; diag 4096 with a
   residual that does not cover every block) for a few steps each;
 - phase 5: GIN 96 -> 64 x4 -> 22 training on the auto layout, row-major:
@@ -125,8 +134,8 @@ TIMED_EPOCHS = 64
 DEVICE = "cuda"  # the card; every tensor of the checks is put there
 
 SOURCES = {
-    "slab_matmul_t": "gnnadvisor_osdi21_tpu_torch/csrc/slab_t.cu",
-    "fused_slab_matmul_t": "gnnadvisor_osdi21_tpu_torch/csrc/slab_t.cu",
+    "slab_matmul_t": "gnnadvisor_osdi21_tpu_torch/csrc/slab.cu",
+    "fused_slab_matmul_t": "gnnadvisor_osdi21_tpu_torch/csrc/slab.cu",
     "residual_combine_t": "gnnadvisor_osdi21_tpu_torch/csrc/residual_t.cu",
     "slab_matmul": "gnnadvisor_osdi21_tpu_torch/csrc/slab.cu",
     "fused_slab_matmul": "gnnadvisor_osdi21_tpu_torch/csrc/slab.cu",
@@ -283,6 +292,12 @@ def row_features(n: int, d: int, dtype, gen: torch.Generator) -> torch.Tensor:
     return torch.randn((n, d), generator=gen, device=DEVICE).to(dtype)
 
 
+def as_table(x_t: torch.Tensor) -> torch.Tensor:
+    """x_t [D, X] as the transposed aggregation hands it to the kernels:
+    the transposed view of a padded row-major table."""
+    return spmm_cuda.row_table_t(x_t).t()[: x_t.shape[0]]
+
+
 def slab_case(n: int, d: int, dtype, gen: torch.Generator):
     """Features of a row-major slab check at width ``d`` and its tolerance
     (None: ATOL + RTOL·|plain|): integers and an exact match at the wide
@@ -365,6 +380,10 @@ def build_layouts():
     log(f"layout 10k power-law (auto): diag_b={sg.diag_b} hot_k={sg.hot_k} "
         f"res_ob={sg.res_ob} res_tile={sg.res_tile} "
         f"covers_all={sg.res_covers_all} ({time.perf_counter() - start:.1f} s)")
+    per_block = np.bincount(hg.res_t2b, minlength=hg.num_rows // hg.res_ob)
+    log(f"  residual tiles per output block (auto layout): mean "
+        f"{per_block.mean():.2f}, p99 {np.percentile(per_block, 99):.0f}, "
+        f"max {per_block.max()}")
     require((hg.diag_b, hg.hot_k, hg.res_ob, hg.res_tile) == (0, 4096, 512, 256)
             and hg.res_covers_all, "headline layout is hot-4096 + residual "
             "(512, 256) covering every block")
@@ -393,27 +412,24 @@ def uncovered(hg):
 
 def rowmajor_tensors(layouts) -> dict:
     """The row-major tensors of the three layouts, from the host layouts
-    already built: GIN's aggregation widths on the auto layout, GCN's on
-    the other two."""
+    already built (GIN's path on the auto layout, GCN's on the other
+    two)."""
     start = time.perf_counter()
-    (g, head, _), (_, fixed, _), (_, small, _) = layouts
-    gin_dims = InputProperty(g, hidden_dim=GIN_HIDDEN, model="gin",
-                             transposed=False).agg_dims()
-    gcn_dims = InputProperty(g, hidden_dim=16, transposed=False).agg_dims()
+    (_, head, _), (_, fixed, _), (_, small, _) = layouts
     kw = dict(agg_dtype="bfloat16", transposed=False, device=DEVICE)
     rm = {
-        "gin": build_layer_tensors(head.hybrid_graph, gin_dims, **kw),
-        "fixed": build_layer_tensors(fixed.hybrid_graph, gcn_dims, **kw),
-        "small": build_layer_tensors(small.hybrid_graph, gcn_dims, **kw),
+        "gin": build_layer_tensors(head.hybrid_graph, **kw),
+        "fixed": build_layer_tensors(fixed.hybrid_graph, **kw),
+        "small": build_layer_tensors(small.hybrid_graph, **kw),
     }
     slots = {k: hts[0].res_src.numel() for k, hts in rm.items()
              if hts[0].res_t2b is not None}
-    log(f"layouts row-major: GIN aggregation widths {gin_dims}, GCN "
-        f"{gcn_dims}; residual slots (one id each, both layers) {slots} "
+    log(f"layouts row-major: residual slots (one id each, both layers) "
+        f"{slots} "
         f"({time.perf_counter() - start:.1f} s)")
     require(all(hts[0] is hts[1] for hts in rm.values())
             and all(h.res_mask is not None and h.res_mask_s is None
-                    and h.res_src is not None and h.res_dst is None
+                    and h.res_src is not None
                     for hts in rm.values() for h in hts
                     if h.res_t2b is not None),
             "row-major tensors are one set for both layers, and keep the "
@@ -428,6 +444,7 @@ def phase2(layouts, recs) -> None:
     log("phase 2: kernels against their plain versions on the card")
 
     # --- slab_matmul_t: hot K=4096, diag B=512 and B=4096 ---------------
+    # x_t as the aggregation hands it over: the view of a row-major table
     rec = recs["slab_matmul_t"]
     cases = [("hot K=4096", hts[0].hot_bits, None, hg.hot_k),
              ("diag B=512", fts[0].diag_bits, 512, fg.num_rows),
@@ -436,24 +453,24 @@ def phase2(layouts, recs) -> None:
         for d in DIMS:
             for dt in DTYPES:
                 x = features(d, cols, dt, gen)
+                xv = as_table(x)
                 compare(rec, f"slab_matmul_t {label} D={d} {dt}",
-                        lambda: spmm_cuda.slab_matmul_t(bits, x, block),
+                        lambda: spmm_cuda.slab_matmul_t(bits, xv, block),
                         lambda: spmm_cuda.slab_matmul_t_plain(bits, x, block))
-    # timed at the main path's first aggregation: hot, D=16, bf16
+    # timed at the main path's aggregations: hot, D=16 and 22, bf16
     bits = hts[0].hot_bits
-    x = features(16, hg.hot_k, torch.bfloat16, gen)
-    rec.ms = time_ms(lambda: spmm_cuda.slab_matmul_t(bits, x))
-    rec.plain_ms = time_ms(lambda: spmm_cuda.slab_matmul_t_plain(bits, x))
     j, r = bit_coords(hg.hot_bits)
     a = csr(r, j, (hg.num_rows, hg.hot_k))
-    xr = x.float().t().contiguous()
-    rec.library_ms = time_ms(lambda: torch.sparse.mm(a, xr))
-    bound(rec, bits.numel() * 2 + x.numel() * 2 + 16 * hg.num_rows * 4,
-          len(j) * 16)
-    log(f"  slab_matmul_t hot K=4096 D=16 bf16: {rec.ms:.4f} ms, plain "
-        f"{rec.plain_ms:.4f} ms, torch.sparse.mm (f32 CSR, {len(j)} nnz) "
-        f"{rec.library_ms:.4f} ms, bound {rec.bound_ms:.4f} ms "
-        f"({rec.bound_by})")
+    for d in (16, 22):
+        x = features(d, hg.hot_k, torch.bfloat16, gen)
+        xv = as_table(x)
+        xr = x.float().t().contiguous()
+        timed(rec, f"hot K=4096 D={d} bf16 ({len(j)} nnz)",
+              lambda: spmm_cuda.slab_matmul_t(bits, xv),
+              lambda: spmm_cuda.slab_matmul_t_plain(bits, x),
+              lambda: torch.sparse.mm(a, xr),
+              bits.numel() * 2 + x.numel() * 2 + d * hg.num_rows * 4,
+              len(j) * d, record=d == 16)
 
     # --- fused_slab_matmul_t at (512, 512) ------------------------------
     rec = recs["fused_slab_matmul_t"]
@@ -462,92 +479,144 @@ def phase2(layouts, recs) -> None:
         for dt in DTYPES:
             x = features(d, fg.num_rows, dt, gen)
             xh = features(d, fg.hot_k, dt, gen)
+            xv, xhv = as_table(x), as_table(xh)
             compare(rec, f"fused_slab_matmul_t (512, 512) D={d} {dt}",
                     lambda: spmm_cuda.fused_slab_matmul_t(
-                        dbits, hbits, x, xh, 512),
+                        dbits, hbits, xv, xhv, 512),
                     lambda: spmm_cuda.fused_slab_matmul_t_plain(
                         dbits, hbits, x, xh, 512))
-    x = features(16, fg.num_rows, torch.bfloat16, gen)
-    xh = features(16, fg.hot_k, torch.bfloat16, gen)
-    rec.ms = time_ms(lambda: spmm_cuda.fused_slab_matmul_t(
-        dbits, hbits, x, xh, 512))
-    rec.plain_ms = time_ms(lambda: spmm_cuda.fused_slab_matmul_t_plain(
-        dbits, hbits, x, xh, 512))
     jd, rd = bit_coords(fg.diag_bits)
     jh, rh = bit_coords(fg.hot_bits)
     a = csr(np.concatenate([rd, rh]),
             np.concatenate([(rd // 512) * 512 + jd, fg.num_rows + jh]),
             (fg.num_rows, fg.num_rows + fg.hot_k))
-    xr = torch.cat([x, xh], dim=1).float().t().contiguous()
-    rec.library_ms = time_ms(lambda: torch.sparse.mm(a, xr))
     nnz = len(jd) + len(jh)
-    bound(rec, dbits.numel() * 2 + hbits.numel() * 2 + x.numel() * 2
-          + xh.numel() * 2 + 16 * fg.num_rows * 4, nnz * 16)
-    log(f"  fused_slab_matmul_t (512, 512) D=16 bf16: {rec.ms:.4f} ms, plain "
-        f"{rec.plain_ms:.4f} ms, torch.sparse.mm (f32 CSR, {nnz} nnz) "
-        f"{rec.library_ms:.4f} ms, bound {rec.bound_ms:.4f} ms")
+    for d in (16, 22):
+        x = features(d, fg.num_rows, torch.bfloat16, gen)
+        xh = features(d, fg.hot_k, torch.bfloat16, gen)
+        xv, xhv = as_table(x), as_table(xh)
+        xr = torch.cat([x, xh], dim=1).float().t().contiguous()
+        timed(rec, f"(512, 512) D={d} bf16 ({nnz} nnz)",
+              lambda: spmm_cuda.fused_slab_matmul_t(dbits, hbits, xv, xhv, 512),
+              lambda: spmm_cuda.fused_slab_matmul_t_plain(
+                  dbits, hbits, x, xh, 512),
+              lambda: torch.sparse.mm(a, xr),
+              dbits.numel() * 2 + hbits.numel() * 2 + x.numel() * 2
+              + xh.numel() * 2 + d * fg.num_rows * 4, nnz * d,
+              record=d == 16)
 
     # --- residual_combine_t at (OB 512, S 256): covering or not ---------
+    # every stream gathering its slot rows from x by res_src, without and
+    # with an addend
     rec = recs["residual_combine_t"]
-    ht = hts[0]
+    ht, st = hts[0], sts[0]
     m_pad = hg.num_res_slots
-    mask_u, _, t2b_u, ptr_u, m_u, _ = uncovered(hg)
-    mask_u, t2b_u, ptr_u = (torch.from_numpy(a).to(DEVICE)
-                            for a in (mask_u, t2b_u, ptr_u))
-    st = sts[0]
+    mask_u, _, t2b_u, ptr_u, _, src_u = uncovered(hg)
+    mask_u, t2b_u, ptr_u, src_u = (torch.from_numpy(a).to(DEVICE)
+                                   for a in (mask_u, t2b_u, ptr_u, src_u))
     streams = [
-        ("(512, 256) covering", ht.res_mask_s, ht.res_t2b, ht.res_block_ptr,
-         m_pad, hg.num_rows, hg.res_ob),
-        ("(512, 256) half the blocks empty", mask_u, t2b_u, ptr_u, m_u,
+        ("(512, 256) covering", ht.res_src, ht.res_mask_s, ht.res_t2b,
+         ht.res_block_ptr, hg.num_rows, hg.res_ob),
+        ("(512, 256) half the blocks empty", src_u, mask_u, t2b_u, ptr_u,
          hg.num_rows, hg.res_ob),
-        (f"10k ({sg.res_ob}, {sg.res_tile}) not covering", st.res_mask_s,
-         st.res_t2b, st.res_block_ptr, sg.num_res_slots, sg.num_rows,
-         sg.res_ob),
+        (f"10k ({sg.res_ob}, {sg.res_tile}) not covering", st.res_src,
+         st.res_mask_s, st.res_t2b, st.res_block_ptr, sg.num_rows, sg.res_ob),
     ]
-    for label, mask_s, t2b, ptr, m, rows, ob in streams:
+    for label, src, mask_s, t2b, ptr, rows, ob in streams:
         for d in DIMS:
             for dt in DTYPES:
-                x = features(d, m, dt, gen)
-                compare(rec, f"residual_combine_t {label} D={d} {dt}",
-                        lambda: spmm_cuda.residual_combine_t(
-                            x, mask_s, t2b, ptr, rows, ob),
-                        lambda: spmm_cuda.residual_combine_t_plain(
-                            x, mask_s, t2b, rows, ob))
-    x = features(16, m_pad, torch.bfloat16, gen)
-    args = (ht.res_mask_s, ht.res_t2b, ht.res_block_ptr, hg.num_rows, hg.res_ob)
-    rec.ms = time_ms(lambda: spmm_cuda.residual_combine_t(x, *args))
-    rec.plain_ms = time_ms(lambda: spmm_cuda.residual_combine_t_plain(
-        x, ht.res_mask_s, ht.res_t2b, hg.num_rows, hg.res_ob))
+                x = features(d, rows, dt, gen)
+                xv = as_table(x)
+                h = features(d, rows, torch.float32, gen)
+                for add in (None, h):
+                    compare(rec, f"residual_combine_t {label} D={d} {dt}"
+                            f"{'' if add is None else ' + addend'}",
+                            lambda: spmm_cuda.residual_combine_t(
+                                xv, src, mask_s, t2b, ptr, rows, ob, add),
+                            lambda: spmm_cuda.residual_combine_t_plain(
+                                x, src, mask_s, t2b, ptr, rows, ob, add))
+    residual_rejects_bad_ids("residual_combine_t", BAD_ID_RUN_T)
+    # the library calls: the same function, a CSR of the residual's edges
+    # over x (and the addend with torch.addmm)
     s, lane = bit_coords(hg.res_mask_s)
     tile = lane // hg.res_ob
-    a = csr(hg.res_t2b[tile].astype(np.int64) * hg.res_ob + lane % hg.res_ob,
-            tile * hg.res_tile + s, (hg.num_rows, m_pad))
-    xr = x.float().t().contiguous()
-    rec.library_ms = time_ms(lambda: torch.sparse.mm(a, xr))
-    bound(rec, ht.res_mask_s.numel() * 2 + x.numel() * 2
-          + ht.res_t2b.numel() * 4 + ht.res_block_ptr.numel() * 4
-          + 16 * hg.num_rows * 4, len(s) * 16)
-    log(f"  residual_combine_t (512, 256) D=16 bf16: {rec.ms:.4f} ms, plain "
-        f"{rec.plain_ms:.4f} ms, torch.sparse.mm (f32 CSR, {len(s)} nnz) "
-        f"{rec.library_ms:.4f} ms, bound {rec.bound_ms:.4f} ms")
+    src_h = ht.res_src.cpu().numpy()
+    a_x = csr(hg.res_t2b[tile].astype(np.int64) * hg.res_ob
+              + lane % hg.res_ob, src_h[tile * hg.res_tile + s],
+              (hg.num_rows, hg.num_rows))
+    args = (ht.res_src, ht.res_mask_s, ht.res_t2b, ht.res_block_ptr,
+            hg.num_rows, hg.res_ob)
+    fixed_bytes = (ht.res_mask_s.numel() * 2 + ht.res_src.numel() * 4
+                   + ht.res_t2b.numel() * 4 + ht.res_block_ptr.numel() * 4)
+    for d in (16, 22):
+        x = features(d, hg.num_rows, torch.bfloat16, gen)
+        xv = as_table(x)
+        xr = x.float().t().contiguous()
+        h = features(d, hg.num_rows, torch.float32, gen)
+        hr = h.t().contiguous()
+        x_bytes = x.numel() * 2 + d * hg.num_rows * 4
+        timed(rec, f"(512, 256) D={d} bf16 ({len(s)} nnz), from x",
+              lambda: spmm_cuda.residual_combine_t(xv, *args),
+              lambda: spmm_cuda.residual_combine_t_plain(x, *args),
+              lambda: torch.sparse.mm(a_x, xr), fixed_bytes + x_bytes,
+              len(s) * d, record=d == 16)
+        timed(rec, f"(512, 256) D={d} bf16, from x + addend",
+              lambda: spmm_cuda.residual_combine_t(xv, *args, h),
+              lambda: spmm_cuda.residual_combine_t_plain(x, *args, h),
+              lambda: torch.addmm(hr, a_x, xr),
+              fixed_bytes + x_bytes + h.numel() * 4, len(s) * d,
+              record=False, lib_name="torch.addmm (f32 CSR)")
+
+    # --- the whole transposed aggregation against one library call -------
+    g = layouts[0][0]
+    a_all = all_edges(g)
+    n = g.num_nodes
+    for d in (16, 22):
+        # f32 features of bf16 values, as the model hands them over: the
+        # aggregation casts them to bf16 exactly and returns f32
+        x = features(d, hg.num_rows, torch.bfloat16, gen).float()
+        x[:, n:] = 0  # padding rows carry no features
+        xf = x[:, :n].t().contiguous()
+        got = hybrid_aggregate(x, ht, False)[:, :n]
+        want = torch.sparse.mm(a_all, xf).t()
+        tol = ATOL + 2.0 ** -16 * torch.sparse.mm(a_all, xf.abs()).t()
+        err = float((got - want).abs().max())
+        require(bool(((got - want).abs() <= tol).all()),
+                f"transposed aggregation D={d} disagrees with the edges")
+        ms = time_ms(lambda: hybrid_aggregate(x, ht, False))
+        lib = time_ms(lambda: torch.sparse.mm(a_all, xf))
+        log(f"  transposed aggregation (table, hot gather, hot slab, "
+            f"residual + addend) D={d}, bf16 aggregation of f32 x: "
+            f"{ms:.4f} ms, torch.sparse.mm (f32 CSR, all {g.nnz} edges) "
+            f"{lib:.4f} ms; max_abs_err against it {err:.3e} "
+            "(tolerance 1e-4 + 2^-16·(A·|x|))")
+        del got, want, tol
+
+
+def all_edges(g) -> torch.Tensor:
+    """The graph's adjacency as a 0/1 CSR on the card."""
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(np.asarray(g.row_pointers, dtype=np.int64)),
+        torch.from_numpy(np.asarray(g.column_index, dtype=np.int64)),
+        torch.ones(g.nnz, dtype=torch.float32),
+        (g.num_nodes, g.num_nodes)).to(DEVICE)
 
 
 def timed(rec: Record, label: str, kernel, plain, library, nbytes: int,
           adds: int, record: bool, lib_name: str = "torch.sparse.mm (f32 CSR)",
           rate: float = F32_OPS_PER_S) -> None:
-    """Time a kernel at one shape beside one library call (``lib_name``);
-    with ``record``, also its plain version, and keep all three with the
-    bound (``adds`` operations at ``rate``) in ``rec``."""
+    """Time a kernel at one shape beside one library call (``lib_name``)
+    and, where given, its plain version; with ``record``, keep the three
+    times with the bound (``adds`` operations at ``rate``) in ``rec``."""
     ms = time_ms(kernel)
     lib_ms = time_ms(library)
+    plain_ms = None if plain is None else time_ms(plain)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = adds / rate * 1e3
-    extra = ""
+    extra = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
     if record:
-        rec.ms, rec.library_ms = ms, lib_ms
-        rec.plain_ms = time_ms(plain)
+        rec.ms, rec.library_ms, rec.plain_ms = ms, lib_ms, plain_ms
         bound(rec, nbytes, adds, rate)
-        extra = f", plain {rec.plain_ms:.4f} ms"
     log(f"  {rec.name} {label}: {ms:.4f} ms{extra}, {lib_name} "
         f"{lib_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
         f"({'bytes' if t_bytes >= t_ops else 'operations'})")
@@ -555,7 +624,7 @@ def timed(rec: Record, label: str, kernel, plain, library, nbytes: int,
 
 # A residual combine whose slot ids name a row past x, run in a process of
 # its own: the kernel's device-side assert ends that process's use of the
-# card.
+# card.  One for each orientation.
 BAD_ID_RUN = '''
 import torch
 from gnnadvisor_osdi21_tpu_torch.ops import spmm_cuda
@@ -570,20 +639,34 @@ spmm_cuda.residual_combine(x, src, mask, t2b, ptr, 128, 128)
 torch.cuda.synchronize()
 print("no error")
 '''
+BAD_ID_RUN_T = '''
+import torch
+from gnnadvisor_osdi21_tpu_torch.ops import spmm_cuda
+x_t = spmm_cuda.row_table_t(torch.ones((8, 64), device="cuda")).t()
+src = torch.zeros(128, dtype=torch.int32, device="cuda")
+src[77] = 64
+mask_s = torch.zeros((8, 128), dtype=torch.int16, device="cuda").view(
+    torch.uint16)
+t2b = torch.zeros(1, dtype=torch.int32, device="cuda")
+ptr = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+spmm_cuda.residual_combine_t(x_t, src, mask_s, t2b, ptr, 128, 128)
+torch.cuda.synchronize()
+print("no error")
+'''
 
 
-def residual_rejects_bad_ids() -> None:
-    """residual_combine on the card stops on a slot id outside x (one
-    row past it) rather than reading past x."""
+def residual_rejects_bad_ids(name: str, run: str) -> None:
+    """The residual kernel ``name`` on the card stops on a slot id outside
+    x (one row past it) rather than reading past x."""
     proc = subprocess.run(
-        [sys.executable, "-c", BAD_ID_RUN], capture_output=True, text=True,
+        [sys.executable, "-c", run], capture_output=True, text=True,
         timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
     said = (proc.stdout + proc.stderr).strip().splitlines()
-    log(f"  residual_combine with a slot id past x: exit {proc.returncode}, "
+    log(f"  {name} with a slot id past x: exit {proc.returncode}, "
         f"{said[-1] if said else 'no output'}")
     require(proc.returncode != 0 and "no error" not in proc.stdout
             and "assert" in proc.stderr.lower(),
-            "residual_combine read a slot id outside x without an error")
+            f"{name} read a slot id outside x without an error")
 
 
 def phase2_rowmajor(layouts, rm, recs) -> None:
@@ -710,7 +793,7 @@ def phase2_rowmajor(layouts, rm, recs) -> None:
                                 xs, ids, mask, t2b, ptr, n_rows, ob, add),
                             lambda: spmm_cuda.residual_combine_plain(
                                 xs, ids, mask, t2b, ptr, n_rows, ob, add))
-    residual_rejects_bad_ids()
+    residual_rejects_bad_ids("residual_combine", BAD_ID_RUN)
     # the library calls: the same function (edges over x), and the old
     # one over the gathered slot rows
     o, slot = mask32_coords(hg.res_mask)
@@ -746,11 +829,7 @@ def phase2_rowmajor(layouts, rm, recs) -> None:
 
     # --- the whole row-major aggregation against one library call --------
     g = layouts[0][0]
-    a_all = torch.sparse_csr_tensor(
-        torch.from_numpy(np.asarray(g.row_pointers, dtype=np.int64)),
-        torch.from_numpy(np.asarray(g.column_index, dtype=np.int64)),
-        torch.ones(g.nnz, dtype=torch.float32),
-        (g.num_nodes, g.num_nodes)).to(DEVICE)
+    a_all = all_edges(g)
     n = g.num_nodes
     for d in (GIN_HIDDEN, 96):
         # f32 features of bf16 values, as the model hands them over: the
@@ -781,10 +860,7 @@ def plain_kernels():
     plain = {
         "slab_matmul_t": spmm_cuda.slab_matmul_t_plain,
         "fused_slab_matmul_t": spmm_cuda.fused_slab_matmul_t_plain,
-        # the plain residual finds each block's tiles from t2b itself
-        "residual_combine_t": lambda rows_t, mask_s, t2b, _ptr, rows, ob: (
-            spmm_cuda.residual_combine_t_plain(rows_t, mask_s, t2b, rows, ob)
-        ),
+        "residual_combine_t": spmm_cuda.residual_combine_t_plain,
         "slab_matmul": spmm_cuda.slab_matmul_plain,
         "fused_slab_matmul": spmm_cuda.fused_slab_matmul_plain,
         "residual_combine": spmm_cuda.residual_combine_plain,
@@ -894,7 +970,13 @@ def log_windows(name: str, res: dict) -> None:
 def phase3(layouts, recs) -> float:
     g, head, hts = layouts[0]
     log("phase 3: GCN 96 -> 16 -> 22 on the amazon0505-scale auto layout")
-    first_step(g, head, hts, "auto layout")
+    counts, gathers = first_step(g, head, hts, "auto layout")
+    require(counts == {**NO_LAUNCHES, "slab_matmul_t": 4,
+                       "residual_combine_t": 4},
+            "one GCN step launches 4 hot slab and 4 residual kernels")
+    require(gathers == 4, "one GCN step gathers 4 times (the hot table of "
+            "each aggregation; the residual kernel gathers its slot rows "
+            "itself)")
     res, counts = train(g, head, hts, epochs=TIMED_EPOCHS, dry=5)
     steps = res["step"]
     log(f"  trained {steps} steps: loss {res['losses'][0]:.5f} -> "
@@ -905,13 +987,26 @@ def phase3(layouts, recs) -> float:
     recs["slab_matmul_t"].launches = counts["slab_matmul_t"]
     recs["residual_combine_t"].launches = counts["residual_combine_t"]
     log_windows("epoch_ms", res)
+    log_profile("epoch_ms", res["epoch_ms"],
+                profile_steps(g, head, hts, "gcn", 16))
     return res["epoch_ms"]
+
+
+def log_profile(name: str, epoch_ms: float, busy: float) -> None:
+    """The device's idle share of the unprofiled step time ``epoch_ms``."""
+    if busy:
+        log(f"  device idle share of {name}: {1 - busy / epoch_ms:.3f} "
+            "(profiled busy time against the unprofiled step)")
+    else:
+        log("  device busy time not measured: the profiler saw no device "
+            "activity")
 
 
 def phase4(layouts, recs) -> None:
     log("phase 4: the other wirings")
     g, fixed, fts = layouts[1]
-    first_step(g, fixed, fts, "diag 512 + hot 512")
+    _, gathers = first_step(g, fixed, fts, "diag 512 + hot 512")
+    require(gathers == 4, "one GCN step gathers the hot table 4 times")
     _, counts = train(g, fixed, fts, epochs=0, dry=3)
     log(f"  diag 512 + hot 512, 3 steps: launches {counts}")
     require(counts == {**NO_LAUNCHES, "fused_slab_matmul_t": 12,
@@ -920,7 +1015,8 @@ def phase4(layouts, recs) -> None:
             "both slab tiers run as one fused launch per aggregation")
     recs["fused_slab_matmul_t"].launches = counts["fused_slab_matmul_t"]
     g10, small, sts = layouts[2]
-    first_step(g10, small, sts, "10k power-law")
+    _, gathers = first_step(g10, small, sts, "10k power-law")
+    require(gathers == 0, "a layout without a hot tier gathers nothing")
     _, counts = train(g10, small, sts, epochs=0, dry=3)
     log(f"  10k power-law (diag 4096, residual not covering), 3 steps: "
         f"launches {counts}")
@@ -954,10 +1050,11 @@ def profile_steps(graph, prop, hts, model: str, hidden: int,
             step()
         torch.cuda.synchronize()
     # device-side entries only: an operator's entry repeats its kernels'
-    # time
+    # time, and so does a user annotation's device range (the optimizer's)
     events = [(e.key, e.count, e.self_device_time_total)
               for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
               and e.self_device_time_total > 0]
     busy = sum(t for *_, t in events) / steps / 1e3
     log(f"  profile of {steps} {model} steps: device busy {busy:.4f} ms per "
@@ -994,14 +1091,8 @@ def phase5(layouts, rm, recs) -> float:
     recs["slab_matmul"].launches = counts["slab_matmul"]
     recs["residual_combine"].launches = counts["residual_combine"]
     log_windows("gin_epoch_ms", res)
-    busy = profile_steps(g, head, hts, "gin", GIN_HIDDEN)
-    if busy:
-        log(f"  device idle share of gin_epoch_ms: "
-            f"{1 - busy / res['epoch_ms']:.3f} (profiled busy time against "
-            "the unprofiled step)")
-    else:
-        log("  device busy time not measured: the profiler saw no device "
-            "activity")
+    log_profile("gin_epoch_ms", res["epoch_ms"],
+                profile_steps(g, head, hts, "gin", GIN_HIDDEN))
     return res["epoch_ms"]
 
 

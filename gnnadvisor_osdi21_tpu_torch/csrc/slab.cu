@@ -1,16 +1,22 @@
-// Row-major bit-slab SpMM for the diagonal and hot tiers of the hybrid
-// layout: out[R, D] = unpack(bits)^T @ x.
+// Bit-slab SpMM for the diagonal and hot tiers of the hybrid layout, in
+// both feature orientations: out[R, D] = unpack(bits)^T @ x (row-major)
+// and out[D, R] = x_t @ unpack(bits) (transposed).
 //
 // Replaces the TPU kernels slab_matmul / _slab_kernel
 // (gnnadvisor_osdi21_tpu/ops/spmm_pallas.py:143, pallas_call at :186),
-// with its hot_slab_matmul (:212) and diag_slab_matmul (:226) wirings, and
-// fused_slab_matmul / _fused_kernel (:259, pallas_call at :294).
+// with its hot_slab_matmul (:212) and diag_slab_matmul (:226) wirings,
+// fused_slab_matmul / _fused_kernel (:259, pallas_call at :294), and their
+// transposed twins slab_matmul_t / _slab_kernel_t (:469, pallas_call at
+// :510) and fused_slab_matmul_t / _fused_kernel_t (:556, pallas_call at
+// :588).
 //
-// Layout.  The slab is the transposed kernels' uint16 [W16, R] (see
-// slab.cuh): slab column j sits in word j % W16 at bit j // W16, graph
-// rows on the minor axis.  Only the features are row-major: the hot
-// wiring reads a global table x_hot [K, Dp], the diagonal wiring reads
-// output row r's own block of x [R, Dp], and the output is [R, D] f32.
+// Layout.  A slab is uint16 [W16, R] with graph rows on the minor axis;
+// slab column j sits in word j % W16 at bit j // W16.  Both orientations
+// read the features from a row-major table [rows, ld] (the transposed
+// wrappers pass x_t as the transposed view of one, or copy it into one):
+// the hot wiring reads a global table x_hot [K, ld], the diagonal wiring
+// output row r's own block of x [R, ld].  Only the output differs: [R, D]
+// or [D, R], f32.
 //
 // What bounds it.  Bytes: the slab (W16 words per row, 512 B for K =
 // 4096) and the output (D f32 per row) each cross device memory once.  A
@@ -46,18 +52,40 @@
 // - The whole feature width is one walk up to 256 columns (D = 96
 //   included); the warp then writes its 16 output rows, summing the
 //   groups' accumulators in group order, and zeroes them for the next
-//   tile.  Wider tables (GIN's first layer aggregates at the input
-//   width: 500 to 3703 on the repo's datasets) are split into chunks of
-//   256 columns, one per blockIdx.y, each walking the slab on its own;
-//   the chunks' blocks walk the same tiles in the same order, so the
-//   slab words of a tile are mostly read from L2 after the first.
+//   tile.  Row-major, each row is one contiguous run of the output.
+//   Transposed, the warp writes D runs of its 16 rows (64 contiguous
+//   bytes, two whole 32-byte sectors, half a warp per run); the
+//   accumulator columns are then swizzled per row (col_swizzle), so the
+//   half warp's 16 rows of one column fall in 16 different banks.  (Rows
+//   padded by two floats instead cost the D = 16 walk its third resident
+//   block of threads, and it ran 40% slower than the row-major one on
+//   the H100.)  Wider tables (GIN's
+//   first layer aggregates at the input width: 500 to 3703 on the repo's
+//   datasets) are split into chunks of 256 columns, one per blockIdx.y,
+//   each walking the slab on its own; the chunks' blocks walk the same
+//   tiles in the same order, so the slab words of a tile are mostly read
+//   from L2 after the first.
 // No atomics; every sum has a fixed order.  R must be a multiple of 8
 // (bulk copies move multiples of 16 bytes).
 
 #include "async.cuh"
-#include "slab.cuh"
 
 namespace gnna {
+
+template <typename T>
+struct Slab {
+  const uint16_t* bits;  // [w16, R]; w16 == 0: slab absent
+  int w16;
+  const T* table;  // row-major [rows, ld]
+  int block;       // 0: global table (hot); B: block-local table (diagonal)
+};
+
+// The element type is a launch-time flag: the C entry points carry table
+// pointers as Slab<float> and reinterpret them for the bf16 instantiation.
+template <typename T>
+inline Slab<T> as_type(const Slab<float>& s) {
+  return Slab<T>{s.bits, s.w16, reinterpret_cast<const T*>(s.table), s.block};
+}
 
 constexpr int kTileRows = 128;  // graph rows per block of threads
 constexpr int kWarpRows = 16;   // rows per consumer warp
@@ -74,6 +102,15 @@ constexpr int kChunk = 256;  // table columns one walk holds
 // list entry: bit 31 the slab (0 first, 1 second), bits 27-30 the row in
 // the warp, bits 0-26 the table row
 constexpr uint32_t kRowMask = (1u << 27) - 1;
+// A transposed walk keeps column j of a warp's accumulator row i at
+// column j ^ col_swizzle(i, Dc): an even offset inside aligned groups of
+// w = min(Dc & -Dc, 32) columns (so pairs of columns stay adjacent and
+// every column stays inside the row), chosen so that the 16 rows of one
+// column, which half a warp reads in the epilogue, fall in 16 banks.
+__device__ __forceinline__ int col_swizzle(int i, int Dc) {
+  const int w = min(Dc & -Dc, 32);
+  return 2 * (((i * w) >> 5) & ((w >> 1) - 1));
+}
 
 // Two features of a table row, as loaded (one 4-byte bf16 pair or one
 // 8-byte f32 pair), and widened to f32.
@@ -104,9 +141,9 @@ struct Pair<float> {
 constexpr int kLoadRegs = 8;
 
 // Add the listed pairs' table rows (``wc`` columns from column c0 of rows
-// ``ld`` apart) into the warp's accumulators acc[group][16][Dc]: group g
-// of 32/G lanes takes pairs g, g + 32/G, ...
-template <typename T, int G, int NP>
+// ``ld`` apart) into the warp's accumulators acc[group][16][Dc] (columns
+// swizzled when kT): group g of 32/G lanes takes pairs g, g + 32/G, ...
+template <typename T, int G, int NP, bool kT>
 __device__ __forceinline__ void add_pairs(const uint32_t* list, int count,
                                           const T* __restrict__ t0,
                                           const T* __restrict__ t1, int ld,
@@ -140,12 +177,14 @@ __device__ __forceinline__ void add_pairs(const uint32_t* list, int count,
     for (int u = 0; u < U; ++u) {
       const int i = i0 + u * NG;
       if (i < count) {
-        float* a = ag + ((list[i] >> 27) & 15) * Dc;
+        const int rl = (list[i] >> 27) & 15;
+        float* a = ag + rl * Dc;
+        const int sw = kT ? col_swizzle(rl, Dc) : 0;
 #pragma unroll
         for (int k = 0; k < NP; ++k) {
           const int p = lig + G * k;
           if (p < pieces) {
-            float2* q = reinterpret_cast<float2*>(a + 2 * p);
+            float2* q = reinterpret_cast<float2*>(a + ((2 * p) ^ sw));
             const float2 w = Pair<T>::widen(v[u][k]);
             float2 s = *q;
             s.x += w.x;
@@ -159,7 +198,8 @@ __device__ __forceinline__ void add_pairs(const uint32_t* list, int count,
   __syncwarp();
 }
 
-template <typename T, int G, int NP>
+// kT: out is [D, R] (transposed), else [R, D].
+template <typename T, int G, int NP, bool kT>
 __global__ void __launch_bounds__(kStreamThreads)
     slab_stream_kernel(Slab<T> first, Slab<T> second, int R, int D, int ld,
                        int Dc, float* __restrict__ out) {
@@ -255,7 +295,7 @@ __global__ void __launch_bounds__(kStreamThreads)
         const int total = __shfl_sync(0xFFFFFFFFu, incl, 31);
         if (total == 0) continue;
         if (count + total > kListCap) {
-          add_pairs<T, G, NP>(list, count, first.table, second.table, ld, c0,
+          add_pairs<T, G, NP, kT>(list, count, first.table, second.table, ld, c0,
                               wc, Dc, acc, lane);
           count = 0;
         }
@@ -265,7 +305,7 @@ __global__ void __launch_bounds__(kStreamThreads)
         const uint32_t tag = (b ? 1u << 31 : 0u);
         for (int base = 0; base < total; base += kListCap) {
           if (base) {
-            add_pairs<T, G, NP>(list, count, first.table, second.table, ld, c0,
+            add_pairs<T, G, NP, kT>(list, count, first.table, second.table, ld, c0,
                                 wc, Dc, acc, lane);
             count = 0;
           }
@@ -295,51 +335,71 @@ __global__ void __launch_bounds__(kStreamThreads)
       if (lane == 0) mbar_arrive(&empty[slot]);
       // add while the ring refills, rather than all at the end
       if (count >= kAddAt) {
-        add_pairs<T, G, NP>(list, count, first.table, second.table, ld, c0, wc,
+        add_pairs<T, G, NP, kT>(list, count, first.table, second.table, ld, c0, wc,
                             Dc, acc, lane);
         count = 0;
       }
     }
-    add_pairs<T, G, NP>(list, count, first.table, second.table, ld, c0, wc, Dc,
+    add_pairs<T, G, NP, kT>(list, count, first.table, second.table, ld, c0, wc, Dc,
                         acc, lane);
 
-    // the warp's rows of the chunk (one contiguous run of the output when
-    // the chunk is the whole width); the accumulators are zeroed for the
+    // the warp's rows of the chunk; the accumulators are zeroed for the
     // next tile as they are read
     const int first_row = r0 + warp * kWarpRows;
-    const int n = max(0, min(kWarpRows, R - first_row)) * max(0, dw);
-    float* dst = out + static_cast<size_t>(first_row) * D + c0;
-    if ((D & 3) == 0) {
-      for (int e = 4 * lane; e < n; e += 128) {
-        const int i = e / dw, j = e - i * dw;
-        float4* a0 = reinterpret_cast<float4*>(acc + i * Dc + j);
-        float4 sum = *a0;
-        *a0 = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (kT) {
+      // column j of the warp's 16 rows is one run of out[j]: half a warp
+      // per run, two runs per store
+      const int i = lane & 15;
+      const bool row_ok = first_row + i < R;
+      const int sw = col_swizzle(i, Dc);
+      float* dst = out + static_cast<size_t>(c0) * R + first_row + i;
+      for (int j = lane >> 4; j < wc; j += 2) {
+        float* a = acc + i * Dc + (j ^ sw);
+        float sum = *a;
+        *a = 0.f;
 #pragma unroll
         for (int g = 1; g < NG; ++g) {
-          float4* ag =
-              reinterpret_cast<float4*>(acc + (g * kWarpRows + i) * Dc + j);
-          const float4 t = *ag;
-          *ag = make_float4(0.f, 0.f, 0.f, 0.f);
-          sum.x += t.x;
-          sum.y += t.y;
-          sum.z += t.z;
-          sum.w += t.w;
+          sum += a[g * kWarpRows * Dc];
+          a[g * kWarpRows * Dc] = 0.f;
         }
-        *reinterpret_cast<float4*>(dst + static_cast<size_t>(i) * D + j) =
-            sum;
+        if (row_ok && j < dw) dst[static_cast<size_t>(j) * R] = sum;
       }
     } else {
-      for (int e = lane; e < n; e += 32) {
-        const int i = e / dw, j = e - i * dw;
-        float sum = acc[i * Dc + j];
-        acc[i * Dc + j] = 0.f;
+      // one contiguous run of the output when the chunk is the whole width
+      const int n = max(0, min(kWarpRows, R - first_row)) * max(0, dw);
+      float* dst = out + static_cast<size_t>(first_row) * D + c0;
+      if ((D & 3) == 0) {
+        for (int e = 4 * lane; e < n; e += 128) {
+          const int i = e / dw, j = e - i * dw;
+          float4* a0 = reinterpret_cast<float4*>(acc + i * Dc + j);
+          float4 sum = *a0;
+          *a0 = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-        for (int g = 1; g < NG; ++g) {
-          sum += acc[(g * kWarpRows + i) * Dc + j];
-          acc[(g * kWarpRows + i) * Dc + j] = 0.f;
+          for (int g = 1; g < NG; ++g) {
+            float4* ag =
+                reinterpret_cast<float4*>(acc + (g * kWarpRows + i) * Dc + j);
+            const float4 t = *ag;
+            *ag = make_float4(0.f, 0.f, 0.f, 0.f);
+            sum.x += t.x;
+            sum.y += t.y;
+            sum.z += t.z;
+            sum.w += t.w;
+          }
+          *reinterpret_cast<float4*>(dst + static_cast<size_t>(i) * D + j) =
+              sum;
         }
-        dst[static_cast<size_t>(i) * D + j] = sum;
+      } else {
+        for (int e = lane; e < n; e += 32) {
+          const int i = e / dw, j = e - i * dw;
+          float sum = acc[i * Dc + j];
+          acc[i * Dc + j] = 0.f;
+#pragma unroll
+          for (int g = 1; g < NG; ++g) {
+            sum += acc[(g * kWarpRows + i) * Dc + j];
+            acc[(g * kWarpRows + i) * Dc + j] = 0.f;
+          }
+          dst[static_cast<size_t>(i) * D + j] = sum;
+        }
       }
     }
     __syncwarp();
@@ -348,14 +408,14 @@ __global__ void __launch_bounds__(kStreamThreads)
 
 // ``ld``: the tables' row width; ``Dc``: the columns of one chunk (the
 // whole width up to kChunk).
-template <typename T, int G, int NP>
+template <typename T, int G, int NP, bool kT>
 int launch_stream(const Slab<float>& a32, const Slab<float>& b32, int R, int D,
                   int ld, int Dc, float* out, cudaStream_t stream) {
   constexpr int NG = 32 / G;
   const size_t smem = kBarrierBytes + kStages * kStageBytes +
                       kConsumers * kListCap * 4 +
                       static_cast<size_t>(kConsumers) * NG * kWarpRows * Dc * 4;
-  auto kernel = slab_stream_kernel<T, G, NP>;
+  auto kernel = slab_stream_kernel<T, G, NP, kT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -380,22 +440,22 @@ int launch_stream(const Slab<float>& a32, const Slab<float>& b32, int R, int D,
 
 // Lanes per pair (G) and pairs of features per lane (NP) for the chunk
 // width: the narrowest group that holds a row, whole warps from 64 wide.
-template <typename T>
+template <typename T, bool kT>
 int launch_rows_typed(const Slab<float>& a, const Slab<float>& b, int R,
                       int D, int Dp, float* out, cudaStream_t stream) {
   const int Dc = min(Dp, kChunk);
   const int pieces = Dc / 2;
   if (pieces <= 4)
-    return launch_stream<T, 4, 1>(a, b, R, D, Dp, Dc, out, stream);
+    return launch_stream<T, 4, 1, kT>(a, b, R, D, Dp, Dc, out, stream);
   if (pieces <= 8)
-    return launch_stream<T, 8, 1>(a, b, R, D, Dp, Dc, out, stream);
+    return launch_stream<T, 8, 1, kT>(a, b, R, D, Dp, Dc, out, stream);
   if (pieces <= 16)
-    return launch_stream<T, 16, 1>(a, b, R, D, Dp, Dc, out, stream);
+    return launch_stream<T, 16, 1, kT>(a, b, R, D, Dp, Dc, out, stream);
   if (pieces <= 32)
-    return launch_stream<T, 32, 1>(a, b, R, D, Dp, Dc, out, stream);
+    return launch_stream<T, 32, 1, kT>(a, b, R, D, Dp, Dc, out, stream);
   if (pieces <= 64)
-    return launch_stream<T, 32, 2>(a, b, R, D, Dp, Dc, out, stream);
-  return launch_stream<T, 32, 4>(a, b, R, D, Dp, Dc, out, stream);
+    return launch_stream<T, 32, 2, kT>(a, b, R, D, Dp, Dc, out, stream);
+  return launch_stream<T, 32, 4, kT>(a, b, R, D, Dp, Dc, out, stream);
 }
 
 bool slab_ok(const Slab<float>& s) {
@@ -404,41 +464,51 @@ bool slab_ok(const Slab<float>& s) {
           reinterpret_cast<uintptr_t>(s.table) % 8 == 0);
 }
 
+// ``transposed``: out is [D, R], else [R, D]; the tables are [rows, Dp].
 int launch_rows(const Slab<float>& a, const Slab<float>& b, int R, int D,
-                int Dp, int bf16, float* out, cudaStream_t stream) {
+                int Dp, int bf16, int transposed, float* out,
+                cudaStream_t stream) {
   if (R <= 0 || R % 8 || R > static_cast<int>(kRowMask) || D <= 0 ||
       D > Dp || Dp % 8 || !slab_ok(a) || !slab_ok(b))
     return static_cast<int>(cudaErrorInvalidValue);
-  return bf16 ? launch_rows_typed<uint16_t>(a, b, R, D, Dp, out, stream)
-              : launch_rows_typed<float>(a, b, R, D, Dp, out, stream);
+  if (transposed)
+    return bf16 ? launch_rows_typed<uint16_t, true>(a, b, R, D, Dp, out, stream)
+                : launch_rows_typed<float, true>(a, b, R, D, Dp, out, stream);
+  return bf16 ? launch_rows_typed<uint16_t, false>(a, b, R, D, Dp, out, stream)
+              : launch_rows_typed<float, false>(a, b, R, D, Dp, out, stream);
 }
 
 }  // namespace gnna
 
 extern "C" {
 
-// One slab: ``block`` = 0 for the hot wiring, B for the diagonal wiring.
+// One slab: ``block`` = 0 for the hot wiring, B for the diagonal wiring;
+// ``transposed``: out [D, R] (slab_matmul_t), else [R, D] (slab_matmul).
 int gnna_slab_matmul(const void* bits, int w16, int block, const void* table,
-                     int R, int D, int Dp, int bf16, void* out, void* stream) {
+                     int R, int D, int Dp, int bf16, int transposed, void* out,
+                     void* stream) {
   using gnna::Slab;
   const Slab<float> a{static_cast<const uint16_t*>(bits), w16,
                       static_cast<const float*>(table), block};
   const Slab<float> none{nullptr, 0, nullptr, 0};
-  return gnna::launch_rows(a, none, R, D, Dp, bf16, static_cast<float*>(out),
+  return gnna::launch_rows(a, none, R, D, Dp, bf16, transposed,
+                           static_cast<float*>(out),
                            static_cast<cudaStream_t>(stream));
 }
 
-// Diagonal and hot slabs in one row pass.
+// Diagonal and hot slabs in one pass (fused_slab_matmul[_t]).
 int gnna_fused_slab_matmul(const void* diag_bits, int diag_w16, int diag_b,
                            const void* diag_table, const void* hot_bits,
                            int hot_w16, const void* hot_table, int R, int D,
-                           int Dp, int bf16, void* out, void* stream) {
+                           int Dp, int bf16, int transposed, void* out,
+                           void* stream) {
   using gnna::Slab;
   const Slab<float> d{static_cast<const uint16_t*>(diag_bits), diag_w16,
                       static_cast<const float*>(diag_table), diag_b};
   const Slab<float> h{static_cast<const uint16_t*>(hot_bits), hot_w16,
                       static_cast<const float*>(hot_table), 0};
-  return gnna::launch_rows(d, h, R, D, Dp, bf16, static_cast<float*>(out),
+  return gnna::launch_rows(d, h, R, D, Dp, bf16, transposed,
+                           static_cast<float*>(out),
                            static_cast<cudaStream_t>(stream));
 }
 

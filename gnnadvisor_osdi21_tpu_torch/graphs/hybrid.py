@@ -83,8 +83,9 @@ HOT_FIX_NS = 2.0e5  # hot-table gather op ramp (charged when hot_k > 0)
 RES_STAGE2_FIX_NS = 7.5e5
 # Epoch-context width limit for the single-stage formulation: inside a
 # training epoch the wide-row full-table gather stream loses its overlap
-# and two-stage wins once slots x agg_dim grows past this many cells.
-# build_hybrid_tensors applies this per layer via ``agg_feature_dim``.
+# and two-stage wins once slots x agg_dim grows past this many cells.  The
+# JAX package's tensor build applies it per layer; the port's residual
+# kernels gather by the composed ids at any width and do not read it.
 RES_SINGLE_MAX_CELLS = 12_000_000
 RESID_PAD_EST = 1.15  # slots / pairs (res_tile padding) at res_ob=1024
 HBM_BYTES_PER_NS = 690.0  # the reference's stream-rate constant (bytes/ns)
@@ -132,9 +133,8 @@ class HybridGraph:
     # block's res_ob rows it feeds (dedup: one gather serves every edge
     # sharing the pair).  The layout stores the TWO-STAGE chain (stage 1
     # compacts unique destinations, stage 2 feeds slots from the table);
-    # whether the device tensors run it or precompose a single full-x
-    # gather is chosen per layer at tensor-build time (``res_single`` +
-    # the RES_SINGLE_MAX_CELLS width gate).
+    # the port's device tensors precompose it into one id per slot
+    # (``res_src``) for the kernels' own gather.
     res_gather: np.ndarray  # [Ud] int32 unique destination rows (stage 1)
     res_dst: np.ndarray  # [M_pad] int32 index into res_gather per slot
     res_mask: np.ndarray  # [res_ob/32, M_pad] uint32 multi-hot, transposed

@@ -32,23 +32,20 @@ NVCC_FLAGS = (
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argument types (every one returns a cudaError_t as int)
 SIGNATURES = {
-    # bits, w16, block, table, R, D, Dp, bf16, out, stream
-    "gnna_slab_matmul_t": (_P, _I, _I, _P, _I, _I, _I, _I, _P, _P),
+    # bits, w16, block, table, R, D, Dp, bf16, transposed, out, stream
+    "gnna_slab_matmul": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P),
     # diag_bits, diag_w16, diag_b, diag_table, hot_bits, hot_w16,
-    # hot_table, R, D, Dp, bf16, out, stream
-    "gnna_fused_slab_matmul_t": (
-        _P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P,
-    ),
-    # mask_s, s16, ob, num_tiles, rows_t, block_ptr, num_rows, D, bf16,
-    # out, stream
-    "gnna_residual_combine_t": (_P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P),
-    # the row-major twins of the first two take the same arguments
-    "gnna_slab_matmul": (_P, _I, _I, _P, _I, _I, _I, _I, _P, _P),
+    # hot_table, R, D, Dp, bf16, transposed, out, stream
     "gnna_fused_slab_matmul": (
-        _P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P,
+        _P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P,
     ),
-    # mask, W, num_tiles, S, x, Dx, src, D, block_ptr, num_rows, addend,
-    # bf16, out, stream
+    # mask_s, s16, ob, num_tiles, x, rows, Dx, src, block_ptr, num_rows,
+    # D, addend, bf16, out, stream
+    "gnna_residual_combine_t": (
+        _P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P,
+    ),
+    # mask, W, num_tiles, S, x, rows, Dx, src, D, block_ptr, num_rows,
+    # addend, bf16, out, stream
     "gnna_residual_combine": (
         _P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P,
     ),

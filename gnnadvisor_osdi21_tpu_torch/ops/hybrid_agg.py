@@ -9,11 +9,14 @@ The port of ``gnnadvisor_osdi21_tpu/ops/hybrid_agg.py``, per layout
 - hot tier: ``spmm_cuda.slab_matmul[_t]`` against the gathered hot-node
   table,
 - both at once: ``spmm_cuda.fused_slab_matmul[_t]``,
-- residual tier: transposed, one or two ``index_select`` gathers (XLA ops
-  outside the kernel in the JAX package too) and
-  ``spmm_cuda.residual_combine_t``; row-major, ``spmm_cuda.residual_combine``
-  alone, which gathers the slot rows from x by ``res_src`` itself and adds
-  the slab tiers' sum.
+- residual tier: ``spmm_cuda.residual_combine[_t]`` alone, which gathers
+  the slot rows from x by ``res_src`` itself (one or two XLA gathers
+  outside the kernel in the JAX package) and adds the slab tiers' sum.
+
+The transposed path first writes x, scaled and cast, into one row-major
+table (``spmm_cuda.row_table_t``) and hands every tier a view of it: the
+diagonal tier and the residual gather read it in place, and the hot tier
+reads its rows gathered by ``hot_ids``, so no kernel call transposes x.
 
 Every reduction is deterministic; there are no atomics.  All arrays live
 in the padded row space [num_rows]; the loss masks padding rows out.
@@ -27,9 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import (
-    RES_SINGLE_MAX_CELLS, HybridGraph,
-)
+from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import HybridGraph
 from gnnadvisor_osdi21_tpu_torch.device import resolve_device
 from gnnadvisor_osdi21_tpu_torch.ops import spmm_cuda
 
@@ -42,28 +43,23 @@ class HybridTensors:
     fields.  Only the residual mask that the layout's kernels read is on
     the device: ``res_mask`` when row-major, ``res_mask_s`` when
     ``transposed``.  Differences: ``res_block_ptr`` holds each output
-    block's tile range for the residual kernels; a row-major layout holds
-    each slot's row of x in ``res_src`` (``res_gather[res_dst]``, whatever
-    the JAX gather's stages) for its kernel's own gather, in place of
-    ``res_gather``/``res_dst``, which only the transposed layout keeps;
-    and the TPU kernel geometry (``block_rows``, ``feature_tile``) and
-    ``gemm_dtype`` are gone: the kernels choose their own geometry, and
-    GEMMs run in f32."""
+    block's tile range for the residual kernels; each slot's row of x is
+    ``res_src`` (``res_gather[res_dst]``, whatever the JAX gather's
+    stages), which the residual kernels gather by themselves, in place of
+    ``res_gather``/``res_dst``; and the TPU kernel geometry
+    (``block_rows``, ``feature_tile``) and ``gemm_dtype`` are gone: the
+    kernels choose their own geometry, and GEMMs run in f32."""
 
     degrees: torch.Tensor  # [R] f32
     row_mask: torch.Tensor  # [R] f32
     diag_bits: Optional[torch.Tensor]  # [B/16, R] uint16 or None
     hot_bits: Optional[torch.Tensor]  # [K/16, R] uint16 or None
     hot_ids: Optional[torch.Tensor]  # [K] int64 or None
-    # transposed: [Ud] int64 unique dst rows (stage 1), [M_pad] int64
-    # (stage 2, or full rows)
-    res_gather: Optional[torch.Tensor]
-    res_dst: Optional[torch.Tensor]
     res_mask: Optional[torch.Tensor]  # [res_ob/32, M_pad] uint32 (row-major)
     res_mask_s: Optional[torch.Tensor]  # [res_tile/16, T*res_ob] uint16
     res_t2b: Optional[torch.Tensor]  # [T] int32 tile -> out block, sorted
     res_block_ptr: Optional[torch.Tensor]  # [num_rows/res_ob + 1] int32
-    res_src: Optional[torch.Tensor]  # [M_pad] int32 slot -> x row (row-major)
+    res_src: Optional[torch.Tensor]  # [M_pad] int32 slot -> x row
     num_rows: int = 0
     real_nodes: int = 0
     diag_b: int = 0
@@ -83,19 +79,15 @@ def build_hybrid_tensors(
     hg: HybridGraph,
     device=None,
     agg_dtype: str = "float32",
-    agg_feature_dim: int | None = None,
     transposed: bool = True,
 ) -> HybridTensors:
     """Move a layout onto ``device`` (None: the card), for the transposed
     kernels or, with ``transposed=False``, the row-major ones.
 
-    ``agg_feature_dim`` is the width this layer's aggregation runs at; on
-    the transposed layout it picks the residual gather per layer: a single
-    gather from full x (``res_dst`` holds full row ids, ``res_gather`` is
-    None) while ``slots x width`` stays within ``RES_SINGLE_MAX_CELLS``,
-    else the two-stage chain (hybrid_agg.py:106-125 in the JAX package).
-    The row-major kernel gathers each slot's row of x once, by
-    ``res_src``, at any width."""
+    The residual kernels of both orientations gather each slot's row of x
+    once, by ``res_src``, at any width: the JAX package's per-width choice
+    between a one- and a two-stage gather (hybrid_agg.py:106-125 there)
+    has no counterpart."""
     if agg_dtype not in AGG_DTYPES:
         raise ValueError(f"agg_dtype must be one of {sorted(AGG_DTYPES)}")
     dev = resolve_device(device)
@@ -111,9 +103,9 @@ def build_hybrid_tensors(
             hg.res_t2b, np.arange(n_blocks + 1)
         ).astype(np.int32)
     res_src = None
-    if has_res and not transposed:
-        # one id per slot for the row-major kernel's gather; pad slots read
-        # row res_gather[0], which their empty masks never add
+    if has_res:
+        # one id per slot for the kernels' gather; pad slots read row
+        # res_gather[0], which their empty masks never add
         res_src = hg.res_gather[hg.res_dst].astype(np.int32)
         if not (res_src.min() >= 0 and res_src.max() < hg.num_rows):
             raise ValueError("residual slot ids fall outside the layout's "
@@ -124,7 +116,6 @@ def build_hybrid_tensors(
         diag_bits=put(hg.diag_bits) if hg.diag_b else None,
         hot_bits=put(hg.hot_bits) if hg.hot_k else None,
         hot_ids=put(hg.hot_ids, torch.int64) if hg.hot_k else None,
-        **residual_gather(hg, dev, agg_feature_dim, transposed),
         # only the mask the chosen kernels read (the other is 77 MB at
         # amazon0505 scale): hybrid_agg.py:110-114 in the JAX package
         res_mask=put(hg.res_mask) if has_res and not transposed else None,
@@ -146,63 +137,31 @@ def build_hybrid_tensors(
 
 def build_layer_tensors(
     hg: HybridGraph,
-    agg_dims: tuple[int, int],
     device=None,
     agg_dtype: str = "float32",
     transposed: bool = True,
 ) -> tuple[HybridTensors, HybridTensors]:
-    """The (input-layer, hidden-layer) tensors of one layout, for layers
-    that aggregate at widths ``agg_dims``: both layers share the device
-    arrays; transposed, they differ in their residual gather where the
-    two widths straddle the single-stage limit (``single_stage``), as in
-    the JAX decider (tuner/decider.py:349-382).  Row-major, both layers
-    are one tensor set (``res_src`` serves every width)."""
-    ht_in = build_hybrid_tensors(
-        hg, device=device, agg_dtype=agg_dtype, agg_feature_dim=agg_dims[0],
-        transposed=transposed,
+    """The (input-layer, hidden-layer) tensors of one layout: one tensor set
+    for both layers, since ``res_src`` serves every width (the JAX decider
+    may give two layers different residual gathers,
+    tuner/decider.py:349-382 there)."""
+    ht = build_hybrid_tensors(
+        hg, device=device, agg_dtype=agg_dtype, transposed=transposed,
     )
-    if not transposed or (
-        single_stage(hg, agg_dims[0]) == single_stage(hg, agg_dims[1])
-    ):
-        return ht_in, ht_in
-    return ht_in, dataclasses.replace(
-        ht_in, **residual_gather(hg, device, agg_dims[1])
-    )
+    return ht, ht
 
 
-def single_stage(hg: HybridGraph, agg_feature_dim: int | None) -> bool:
-    """Whether a layer aggregating at width ``agg_feature_dim`` gathers its
-    residual slots from full x in one step (see ``build_hybrid_tensors``)."""
-    return bool(hg.res_dst.size) and hg.res_single and (
-        agg_feature_dim is None
-        or hg.num_res_slots * agg_feature_dim <= RES_SINGLE_MAX_CELLS
-    )
-
-
-def residual_gather(
-    hg: HybridGraph, device, agg_feature_dim: int | None,
-    transposed: bool = True,
-) -> dict[str, Optional[torch.Tensor]]:
-    """``res_gather``/``res_dst`` for a transposed layer that aggregates
-    at width ``agg_feature_dim``; None for a row-major layer, whose kernel
-    reads ``res_src``."""
-    if hg.res_dst.size == 0 or not transposed:
-        return {"res_gather": None, "res_dst": None}
-    dev = resolve_device(device)
-    if single_stage(hg, agg_feature_dim):
-        dst = torch.from_numpy(hg.res_gather[hg.res_dst].astype(np.int64))
-        return {"res_gather": None, "res_dst": dst.to(dev)}
-    return {
-        "res_gather": torch.from_numpy(hg.res_gather.astype(np.int64)).to(dev),
-        "res_dst": torch.from_numpy(hg.res_dst.astype(np.int64)).to(dev),
-    }
-
-
-def _tiers_transposed(x_t: torch.Tensor, ht: HybridTensors) -> torch.Tensor:
-    """Sum of the tiers ([D, R] in and out, no degree scaling)."""
+def _tiers_transposed(table: torch.Tensor, d: int,
+                      ht: HybridTensors) -> torch.Tensor:
+    """Sum of the tiers ([D, R] out, no degree scaling) over x given as its
+    row-major table [R, Dp] (``spmm_cuda.row_table_t``): every tier reads
+    ``table.t()[:d]``, x_t itself, in place; both slab tiers run as one
+    fused launch where both exist, and the residual kernel adds their sum
+    to its own (no separate ``out + r``)."""
+    x_t = table.t()[:d]
+    x_hot_t = table.index_select(0, ht.hot_ids).t()[:d] if ht.hot_k else None
     out = None
     if ht.diag_b and ht.hot_k:
-        x_hot_t = x_t.index_select(1, ht.hot_ids)
         out = spmm_cuda.fused_slab_matmul_t(
             ht.diag_bits, ht.hot_bits, x_t, x_hot_t, ht.diag_b
         )
@@ -212,31 +171,28 @@ def _tiers_transposed(x_t: torch.Tensor, ht: HybridTensors) -> torch.Tensor:
                 ht.diag_bits, x_t, table_block_cols=ht.diag_b
             )
         if ht.hot_k:
-            x_hot_t = x_t.index_select(1, ht.hot_ids)
             h = spmm_cuda.slab_matmul_t(ht.hot_bits, x_hot_t)
             out = h if out is None else out + h
-    if ht.res_dst is not None:
-        r = residual_tier_t(x_t, ht)
-        out = r if out is None else out + r
+    if ht.res_t2b is not None:
+        out = residual_tier_t(x_t, ht, addend=out)
     if out is None:
-        out = torch.zeros(x_t.shape, dtype=torch.float32, device=x_t.device)
+        out = torch.zeros((d, table.shape[0]), dtype=torch.float32,
+                          device=table.device)
     return out
 
 
-def residual_tier_t(src_t: torch.Tensor, ht: HybridTensors) -> torch.Tensor:
-    """Residual tier over the gather source ``src_t [D, table]``.
-
-    The combine writes zeros into output blocks that no tile visits, so
-    the JAX package's visited-block select (hybrid_agg.py:377-384) has no
-    pass of its own here, whether or not ``res_covers_all`` holds."""
-    if ht.res_gather is None:
-        rows_t = src_t.index_select(1, ht.res_dst)  # [D, M_pad]
-    else:
-        compact = src_t.index_select(1, ht.res_gather)  # [D, Ud]
-        rows_t = compact.index_select(1, ht.res_dst)  # [D, M_pad]
+def residual_tier_t(
+    src_t: torch.Tensor, ht: HybridTensors, addend: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Transposed residual tier over the gather source ``src_t [D, table]``
+    (the JAX package's ``residual_tier_t``, hybrid_agg.py:355-385), plus
+    ``addend`` when given.  The kernel gathers the slot rows by ``res_src``
+    itself, and writes zeros into output blocks that no tile visits, so
+    the JAX package's visited-block select has no pass of its own here,
+    whether or not ``res_covers_all`` holds."""
     return spmm_cuda.residual_combine_t(
-        rows_t, ht.res_mask_s, ht.res_t2b, ht.res_block_ptr, ht.num_rows,
-        ht.res_ob,
+        src_t, ht.res_src, ht.res_mask_s, ht.res_t2b, ht.res_block_ptr,
+        ht.num_rows, ht.res_ob, addend=addend,
     )
 
 
@@ -291,11 +247,18 @@ def hybrid_aggregate(
     the output, both dense, so no tier touches per-edge weights
     (deg[s]·deg[d]·x[d] = deg[s]·(deg·x)[d])."""
     out_dtype = x.dtype
-    deg = ht.degrees[None, :] if ht.transposed else ht.degrees[:, None]
-    tiers = _tiers_transposed if ht.transposed else _tiers_rowmajor
-    if norm:
-        x = x * deg.to(x.dtype)
-    out = tiers(x.to(AGG_DTYPES[ht.agg_dtype]).contiguous(), ht)
+    agg_dtype = AGG_DTYPES[ht.agg_dtype]
+    if ht.transposed:
+        deg = ht.degrees[None, :]
+        # the scale, the cast and the transpose in one pass
+        table = spmm_cuda.row_table_t(
+            x, agg_dtype, ht.degrees.to(x.dtype) if norm else None)
+        out = _tiers_transposed(table, x.shape[0], ht)
+    else:
+        deg = ht.degrees[:, None]
+        if norm:
+            x = x * deg.to(x.dtype)
+        out = _tiers_rowmajor(x.to(agg_dtype).contiguous(), ht)
     if norm:
         out = out * deg
     return out.to(out_dtype)

@@ -14,15 +14,21 @@ Each kernel has:
   launches its kernel and nowhere else.
 
 TPU kernels replaced (gnnadvisor_osdi21_tpu/ops/spmm_pallas.py), features
-transposed ``[D, R]``: ``slab_matmul_t`` (:469) -> csrc/slab_t.cu,
-``fused_slab_matmul_t`` (:556) -> csrc/slab_t.cu, ``residual_combine_t``
-(:649) -> csrc/residual_t.cu; features row-major ``[R, D]``:
-``slab_matmul`` (:143, with its ``hot_slab_matmul`` and
-``diag_slab_matmul`` wirings) -> csrc/slab.cu, ``fused_slab_matmul``
-(:259) -> csrc/slab.cu, ``residual_combine`` (:354) -> csrc/residual.cu.
-The row-major ``residual_combine`` also takes over its caller's slot
-gathers (it reads the slot rows of x by ``res_src``) and, given an
+transposed ``[D, R]``: ``slab_matmul_t`` (:469) and ``fused_slab_matmul_t``
+(:556) -> csrc/slab.cu, ``residual_combine_t`` (:649) ->
+csrc/residual_t.cu; features row-major ``[R, D]``: ``slab_matmul`` (:143,
+with its ``hot_slab_matmul`` and ``diag_slab_matmul`` wirings) and
+``fused_slab_matmul`` (:259) -> csrc/slab.cu, ``residual_combine`` (:354)
+-> csrc/residual.cu.  The slab kernels of both orientations are one walk
+with two epilogues.  Both residual kernels also take over their caller's
+slot gathers (they read the slot rows of x by ``res_src``) and, given an
 addend, the tier sum.
+
+Every kernel reads its features from a row-major table ``[rows, ld]``.
+The transposed wrappers take ``x_t [D, X]`` as the transposed view
+``table.t()[:D]`` of such a table (``row_table_t``), which the kernels
+read in place, and refuse any other x_t: the transposed aggregation
+builds one table per call and hands every tier a view of it.
 
 Bit layout: a slab is uint16 ``[K/16, R]`` with column j in word
 ``j % (K/16)`` at bit ``j // (K/16)`` (both orientations); a transposed
@@ -148,11 +154,16 @@ def fused_slab_matmul_t_plain(
 
 
 def residual_combine_t_plain(
-    rows_t: torch.Tensor, mask_s: torch.Tensor, t2b: torch.Tensor,
-    num_rows: int, res_ob: int,
+    x_t: torch.Tensor, res_src: torch.Tensor, mask_s: torch.Tensor,
+    t2b: torch.Tensor, block_ptr: torch.Tensor, num_rows: int, res_ob: int,
+    addend: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """out[D, num_rows] f32: every tile's rows @ its unpacked [S, OB] mask,
-    summed into the tile's output block; blocks no tile visits are 0."""
+    """out[D, num_rows] f32: the slot rows ``x_t[:, res_src]``, and for
+    every tile its rows @ its unpacked [S, OB] mask, summed into the tile's
+    output block; blocks no tile visits are 0.  With ``addend``, ``addend
+    + out``.  ``block_ptr`` is the kernel's; the plain version finds each
+    block's tiles from ``t2b``."""
+    rows_t = x_t.index_select(1, res_src)
     s = mask_s.shape[0] * 16
     t = t2b.shape[0]
     d = rows_t.shape[0]
@@ -167,7 +178,8 @@ def residual_combine_t_plain(
         == torch.arange(n_blocks, device=t2b.device)[:, None]
     ).to(torch.float32)
     blocks = (onehot @ chunks).reshape(n_blocks, d, res_ob)
-    return blocks.permute(1, 0, 2).reshape(d, num_rows)
+    out = blocks.permute(1, 0, 2).reshape(d, num_rows)
+    return out if addend is None else addend + out
 
 
 # ---------------------------------------------------------------------------
@@ -176,8 +188,8 @@ def residual_combine_t_plain(
 
 
 def _table_width(d: int) -> int:
-    """Row width of the kernels' row-major tables: one feature tile of a
-    multiple of 8 up to 32, else whole tiles of 32 (csrc/slab_t.cu)."""
+    """Row width of the row-major kernels' tables: a multiple of 8 up to
+    32, else whole tiles of 32."""
     return _round_up(d, 8) if d <= 32 else _round_up(d, 32)
 
 
@@ -192,8 +204,65 @@ def _row_table(x: torch.Tensor, width: int) -> torch.Tensor:
     return table
 
 
+def row_table_t(
+    x_t: torch.Tensor, dtype: torch.dtype | None = None,
+    scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """x_t [D, X] as a row-major table [X, round_up(D, 8)] with zero pad
+    columns, in ``dtype`` (default x_t's) and, given ``scale`` [X], times
+    it per column; one pass that scales, casts and transposes together.
+    ``table.t()[:D]`` is then x_t again, in the form the transposed
+    kernels read in place."""
+    d, n = x_t.shape
+    width = _round_up(d, 8)
+    table = torch.empty((n, width), dtype=dtype or x_t.dtype,
+                        device=x_t.device)
+    if width > d:
+        table[:, d:].zero_()
+    if scale is None:
+        table[:, :d].copy_(x_t.t())
+    else:
+        torch.mul(x_t.t(), scale[:, None], out=table[:, :d])
+    return table
+
+
+def _table_ld(name: str, x_t: torch.Tensor, ld: int | None = None) -> int:
+    """The row width of the table whose transposed view ``table.t()[:D]``
+    x_t [D, X] is (``row_table_t``; ``ld`` where given): rows a multiple
+    of 8 elements and at least D apart, 16-byte aligned, every row inside
+    the storage.  Any other x_t raises."""
+    if x_t.dtype not in FEATURE_DTYPES or x_t.dim() != 2:
+        raise ValueError(f"{name} must be a 2-D float32 or bfloat16 tensor, "
+                         f"got {x_t.dtype} {tuple(x_t.shape)}")
+    d, n = x_t.shape
+    w = x_t.stride(1)
+    if not (
+        x_t.stride(0) == 1 and w % 8 == 0 and w >= d
+        and (ld is None or w == ld)
+        and x_t.data_ptr() % 16 == 0
+        and (x_t.storage_offset() + n * w) * x_t.element_size()
+        <= x_t.untyped_storage().nbytes()
+    ):
+        raise ValueError(
+            f"{name} must be the transposed view table.t()[:D] of a whole "
+            "row-major table (row_table_t)"
+            + ("" if ld is None else f" of {ld} columns")
+            + f", got strides {x_t.stride()}"
+        )
+    return w
+
+
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _check_stream(r: int) -> None:
+    """What the slab kernels take: rows in whole 16-byte pieces of the slab
+    (their bulk copies move multiples of 16 bytes)."""
+    if r % 8:
+        raise ValueError(
+            f"slab of {r} rows: the kernel takes a multiple of 8 rows"
+        )
 
 
 def slab_matmul_t(
@@ -202,9 +271,10 @@ def slab_matmul_t(
     """out[D, R] f32 = x_t @ unpack(bits_t) (global or block-local table).
 
     ``bits_t`` uint16 [K/16, R]; ``x_t`` [D, K] (hot) or [D, R] (diagonal,
-    ``table_block_cols == K``), float32 or bfloat16."""
+    ``table_block_cols == K``), float32 or bfloat16, the transposed view
+    of a row-major table (``row_table_t``)."""
     k = _check_bits("bits_t", bits_t)
-    _check_features("x_t", x_t)
+    _table_ld("x_t", x_t)
     r = bits_t.shape[1]
     if table_block_cols is None:
         if x_t.shape[1] != k:
@@ -216,18 +286,17 @@ def slab_matmul_t(
         )
     if _on_cpu(bits_t, x_t):
         return slab_matmul_t_plain(bits_t, x_t, table_block_cols)
+    _check_stream(r)
     return _slab_matmul_t_cuda(bits_t, x_t, table_block_cols or 0)
 
 
 def _slab_matmul_t_cuda(bits_t, x_t, block: int) -> torch.Tensor:
     d, r = x_t.shape[0], bits_t.shape[1]
-    width = _table_width(d)
-    table = _row_table(x_t.t(), width)
     out = torch.empty((d, r), dtype=torch.float32, device=x_t.device)
     with torch.cuda.device(x_t.device):
-        rc = _build.library().gnna_slab_matmul_t(
-            bits_t.data_ptr(), bits_t.shape[0], block, table.data_ptr(), r, d,
-            width, int(x_t.dtype == torch.bfloat16), out.data_ptr(),
+        rc = _build.library().gnna_slab_matmul(
+            bits_t.data_ptr(), bits_t.shape[0], block, x_t.data_ptr(), r, d,
+            x_t.stride(1), int(x_t.dtype == torch.bfloat16), 1, out.data_ptr(),
             _stream(x_t.device),
         )
     _build.check("slab_matmul_t", rc)
@@ -239,11 +308,12 @@ def fused_slab_matmul_t(
     diag_bits_t: torch.Tensor, hot_bits_t: torch.Tensor, x_t: torch.Tensor,
     x_hot_t: torch.Tensor, diag_b: int,
 ) -> torch.Tensor:
-    """out[D, R] = x_t @ blockdiag(diag) + x_hot_t @ hot, one column pass."""
+    """out[D, R] = x_t @ blockdiag(diag) + x_hot_t @ hot, one pass; the
+    operands as ``slab_matmul_t`` takes them, both tables of one row
+    width."""
     b = _check_bits("diag_bits_t", diag_bits_t)
     k = _check_bits("hot_bits_t", hot_bits_t)
-    _check_features("x_t", x_t)
-    _check_features("x_hot_t", x_hot_t)
+    _table_ld("x_hot_t", x_hot_t, _table_ld("x_t", x_t))
     r = diag_bits_t.shape[1]
     if (
         b != diag_b or hot_bits_t.shape[1] != r or x_t.shape[1] != r
@@ -259,6 +329,7 @@ def fused_slab_matmul_t(
         return fused_slab_matmul_t_plain(
             diag_bits_t, hot_bits_t, x_t, x_hot_t, diag_b
         )
+    _check_stream(r)
     return _fused_slab_matmul_t_cuda(
         diag_bits_t, hot_bits_t, x_t, x_hot_t, diag_b
     )
@@ -266,17 +337,13 @@ def fused_slab_matmul_t(
 
 def _fused_slab_matmul_t_cuda(diag_bits_t, hot_bits_t, x_t, x_hot_t, diag_b):
     d, r = x_t.shape[0], diag_bits_t.shape[1]
-    width = _table_width(d)
-    diag_table = _row_table(x_t.t(), width)
-    hot_table = _row_table(x_hot_t.t(), width)
     out = torch.empty((d, r), dtype=torch.float32, device=x_t.device)
     with torch.cuda.device(x_t.device):
-        rc = _build.library().gnna_fused_slab_matmul_t(
+        rc = _build.library().gnna_fused_slab_matmul(
             diag_bits_t.data_ptr(), diag_bits_t.shape[0], diag_b,
-            diag_table.data_ptr(), hot_bits_t.data_ptr(), hot_bits_t.shape[0],
-            hot_table.data_ptr(), r, d, width,
-            int(x_t.dtype == torch.bfloat16), out.data_ptr(),
-            _stream(x_t.device),
+            x_t.data_ptr(), hot_bits_t.data_ptr(), hot_bits_t.shape[0],
+            x_hot_t.data_ptr(), r, d, x_t.stride(1), int(x_t.dtype == torch.bfloat16),
+            1, out.data_ptr(), _stream(x_t.device),
         )
     _build.check("fused_slab_matmul_t", rc)
     launches["fused_slab_matmul_t"] += 1
@@ -284,48 +351,82 @@ def _fused_slab_matmul_t_cuda(diag_bits_t, hot_bits_t, x_t, x_hot_t, diag_b):
 
 
 def residual_combine_t(
-    rows_t: torch.Tensor, mask_s: torch.Tensor, t2b: torch.Tensor,
-    block_ptr: torch.Tensor, num_rows: int, res_ob: int,
+    x_t: torch.Tensor, res_src: torch.Tensor, mask_s: torch.Tensor,
+    t2b: torch.Tensor, block_ptr: torch.Tensor, num_rows: int, res_ob: int,
+    addend: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """out[D, num_rows] f32: residual-tier combine.
+    """out[D, num_rows] f32: residual-tier combine, features transposed,
+    with the slot gather and, given ``addend``, the tier sum in the kernel.
 
-    ``rows_t`` [D, T·S] gathered slot rows; ``mask_s`` uint16 [S/16, T·OB];
-    ``t2b`` int32 [T] tile -> out block, sorted ascending; ``block_ptr``
-    int32 [num_rows/OB + 1], the tile range of each block (the offsets of
-    ``t2b``'s runs).  Blocks with no tile come out as zeros."""
+    ``x_t`` [D, X] the gather source, as ``slab_matmul_t`` takes it;
+    ``res_src`` int32 [T·S], the column of x_t each slot reads (every id,
+    pad slots included, a column of x_t: another id raises, at once on
+    the CPU and on the card as a device-side assert at the next
+    synchronisation, as ``index_select`` does); ``mask_s`` uint16 [S/16,
+    T·OB]; ``t2b`` int32 [T] tile -> out block, sorted ascending;
+    ``block_ptr`` int32 [num_rows/OB + 1], the tile range of each block
+    (the offsets of ``t2b``'s runs); ``addend`` None or f32 [D, num_rows],
+    added to the tier's sum (``addend + out``).  Blocks with no tile come
+    out as zeros (as ``addend``)."""
     s = _check_bits("mask_s", mask_s)
-    _check_features("rows_t", rows_t)
+    _table_ld("x_t", x_t)
+    _check_index("res_src", res_src)
     _check_index("t2b", t2b)
     _check_index("block_ptr", block_ptr)
     t = t2b.shape[0]
     if (
         res_ob <= 0 or num_rows % res_ob or mask_s.shape[1] != t * res_ob
-        or rows_t.shape[1] != t * s
+        or res_src.shape[0] != t * s
         or block_ptr.shape[0] != num_rows // res_ob + 1
     ):
         raise ValueError(
             f"residual stream: {t} tiles of {s} slots, mask "
-            f"{tuple(mask_s.shape)}, rows {tuple(rows_t.shape)}, block_ptr "
-            f"{tuple(block_ptr.shape)}, num_rows {num_rows}, res_ob {res_ob}"
+            f"{tuple(mask_s.shape)}, res_src {tuple(res_src.shape)}, "
+            f"block_ptr {tuple(block_ptr.shape)}, num_rows {num_rows}, "
+            f"res_ob {res_ob}"
         )
-    if _on_cpu(rows_t, mask_s, t2b, block_ptr):
-        return residual_combine_t_plain(rows_t, mask_s, t2b, num_rows, res_ob)
-    if s > MAX_RES_TILE:
+    d = x_t.shape[0]
+    if addend is not None and (
+        addend.dtype != torch.float32
+        or tuple(addend.shape) != (d, num_rows)
+        or not addend.is_contiguous()
+    ):
         raise ValueError(
-            f"residual tile of {s} slots exceeds the kernel's {MAX_RES_TILE}"
+            f"addend must be a contiguous float32 [{d}, {num_rows}] tensor, "
+            f"got {addend.dtype} {tuple(addend.shape)}"
         )
-    return _residual_combine_t_cuda(rows_t, mask_s, block_ptr, num_rows, res_ob)
+    operands = (x_t, res_src, mask_s, t2b, block_ptr) + (
+        () if addend is None else (addend,))
+    if _on_cpu(*operands):
+        # the ids are checked here; on the card the kernel asserts each id
+        # it reads (a check here would wait for the card)
+        if res_src.numel() and (int(res_src.min()) < 0
+                                or int(res_src.max()) >= x_t.shape[1]):
+            raise ValueError(f"res_src holds ids outside x_t's "
+                             f"{x_t.shape[1]} columns")
+        return residual_combine_t_plain(x_t, res_src, mask_s, t2b, block_ptr,
+                                        num_rows, res_ob, addend)
+    if s > MAX_RES_TILE or res_ob % 8:
+        raise ValueError(
+            f"residual tiles of {s} slots, blocks of {res_ob} rows: the "
+            f"kernel takes up to {MAX_RES_TILE} slots, a multiple of 8 rows"
+        )
+    return _residual_combine_t_cuda(x_t, res_src, mask_s, block_ptr, t,
+                                    num_rows, res_ob, addend)
 
 
-def _residual_combine_t_cuda(rows_t, mask_s, block_ptr, num_rows, res_ob):
-    d = rows_t.shape[0]
-    out = torch.empty((d, num_rows), dtype=torch.float32, device=rows_t.device)
-    with torch.cuda.device(rows_t.device):
+def _residual_combine_t_cuda(x_t, res_src, mask_s, block_ptr, t, num_rows,
+                             res_ob, addend):
+    d, rows = x_t.shape
+    out = torch.empty((d, num_rows), dtype=torch.float32, device=x_t.device)
+    with torch.cuda.device(x_t.device):
         rc = _build.library().gnna_residual_combine_t(
-            mask_s.data_ptr(), mask_s.shape[0], res_ob,
-            mask_s.shape[1] // res_ob, rows_t.data_ptr(), block_ptr.data_ptr(),
-            num_rows, d, int(rows_t.dtype == torch.bfloat16), out.data_ptr(),
-            _stream(rows_t.device),
+            mask_s.data_ptr(), mask_s.shape[0], res_ob, t, x_t.data_ptr(),
+            rows, x_t.stride(1), res_src.data_ptr(),
+            block_ptr.data_ptr(), num_rows, d,
+            None if addend is None else addend.data_ptr(),
+            int(x_t.dtype == torch.bfloat16), out.data_ptr(),
+            _stream(x_t.device),
         )
     _build.check("residual_combine_t", rc)
     launches["residual_combine_t"] += 1
@@ -428,15 +529,6 @@ def slab_matmul(
     return _slab_matmul_cuda(bits_t, x, table_block_rows or 0)
 
 
-def _check_stream(r: int) -> None:
-    """What the row-major slab kernel takes: rows in whole 16-byte pieces
-    of the slab (its bulk copies move multiples of 16 bytes)."""
-    if r % 8:
-        raise ValueError(
-            f"slab of {r} rows: the kernel takes a multiple of 8 rows"
-        )
-
-
 def _slab_matmul_cuda(bits_t, x, block: int) -> torch.Tensor:
     r, d = bits_t.shape[1], x.shape[1]
     width = _table_width(d)
@@ -445,7 +537,7 @@ def _slab_matmul_cuda(bits_t, x, block: int) -> torch.Tensor:
     with torch.cuda.device(x.device):
         rc = _build.library().gnna_slab_matmul(
             bits_t.data_ptr(), bits_t.shape[0], block, table.data_ptr(), r, d,
-            width, int(x.dtype == torch.bfloat16), out.data_ptr(),
+            width, int(x.dtype == torch.bfloat16), 0, out.data_ptr(),
             _stream(x.device),
         )
     _build.check("slab_matmul", rc)
@@ -490,7 +582,8 @@ def _fused_slab_matmul_cuda(diag_bits_t, hot_bits_t, x, x_hot, diag_b):
             diag_bits_t.data_ptr(), diag_bits_t.shape[0], diag_b,
             diag_table.data_ptr(), hot_bits_t.data_ptr(), hot_bits_t.shape[0],
             hot_table.data_ptr(), r, d, width,
-            int(x.dtype == torch.bfloat16), out.data_ptr(), _stream(x.device),
+            int(x.dtype == torch.bfloat16), 0, out.data_ptr(),
+            _stream(x.device),
         )
     _build.check("fused_slab_matmul", rc)
     launches["fused_slab_matmul"] += 1

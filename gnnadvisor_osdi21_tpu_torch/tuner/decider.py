@@ -129,12 +129,10 @@ class InputProperty:
         return self
 
     def build_tensors(self, device=None) -> tuple[HybridTensors, HybridTensors]:
-        """Build the layout and put it on ``device`` (None: the card), once
-        per layer's residual gather: GCN aggregates at the hidden width,
-        then at the class count; GIN at the input width, then at the
-        hidden one (aggregation precedes its GEMM); and on the transposed
-        layout each width may pick another gather
-        (``hybrid_agg.single_stage``)."""
+        """Build the layout and put it on ``device`` (None: the card): one
+        tensor set for both layers, whatever widths they aggregate at
+        (``agg_dims``), since the residual kernels gather by ``res_src``
+        at any width."""
         if self.layer_input is None:
             raise RuntimeError("call decider() first")
         dev = resolve_device(device)
@@ -153,7 +151,7 @@ class InputProperty:
             # launches, so the tiers themselves are all there is to refresh
             self.diag_b, self.hot_k = hg.diag_b, hg.hot_k
         return build_layer_tensors(
-            hg, self.agg_dims(), device=dev, agg_dtype=self.agg_dtype,
+            hg, device=dev, agg_dtype=self.agg_dtype,
             transposed=self.transposed is not False,
         )
 

@@ -21,11 +21,18 @@ from gnnadvisor_osdi21_tpu.ops.hybrid_agg import (
     hybrid_aggregate as jax_hybrid_aggregate,
 )
 from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import build_hybrid
+from gnnadvisor_osdi21_tpu_torch.ops import spmm_cuda
 from gnnadvisor_osdi21_tpu_torch.ops.aggregate import aggregate
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import (
     build_hybrid_tensors, hybrid_aggregate,
 )
 
+
+def jax_slot_rows(jt) -> np.ndarray:
+    """The JAX layer's residual slot ids composed to rows of x: its
+    ``res_dst`` when single-stage, else ``res_gather[res_dst]``."""
+    dst = np.asarray(jt.res_dst)
+    return dst if jt.res_gather is None else np.asarray(jt.res_gather)[dst]
 
 
 def assert_close(got: np.ndarray, want: np.ndarray) -> None:
@@ -82,13 +89,15 @@ def test_hybrid_aggregate_matches_jax(graphs, layout, stage, agg_dtype):
     jhg, thg = jax_build(graph, probe=False, **kw), build_hybrid(graph, **kw)
     assert thg.res_covers_all == jhg.res_covers_all == covers
     assert thg.res_single
-    # the width gate picks the gather: single below RES_SINGLE_MAX_CELLS
+    # the JAX width gate picks its gather: single below
+    # RES_SINGLE_MAX_CELLS; the port's kernel reads the composed ids, the
+    # same at every width
     width = None if stage == "single" else 10**9
     jt = jax_tensors(jhg, agg_dtype=agg_dtype, transposed=True,
                      agg_feature_dim=width)
-    tt = build_hybrid_tensors(thg, device="cpu", agg_dtype=agg_dtype,
-                              agg_feature_dim=width)
-    assert (tt.res_gather is None) == (stage == "single")
+    tt = build_hybrid_tensors(thg, device="cpu", agg_dtype=agg_dtype)
+    assert (jt.res_gather is None) == (stage == "single")
+    assert np.array_equal(tt.res_src.numpy(), jax_slot_rows(jt))
     x = np.random.default_rng(1).standard_normal(
         (22, thg.num_rows)).astype(np.float32)
     for norm in (False, True):
@@ -114,3 +123,55 @@ def test_aggregate_backward_is_the_same_aggregation(graphs):
         xt = torch.from_numpy(x).requires_grad_(True)
         aggregate(xt, tt, norm).backward(torch.from_numpy(g))
         assert_close(xt.grad.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize(
+    "layout", LAYOUTS, ids=[f"{lay[0]}-{lay[1]}" for lay in LAYOUTS]
+)
+def test_transposed_tiers_gather_only_the_hot_table(graphs, layout,
+                                                    monkeypatch):
+    """Outside the kernels the transposed tiers gather the hot table alone
+    (one ``index_select`` when the layout has a hot tier, else none): the
+    residual kernel reads its slot rows from x by ``res_src`` itself, and
+    adds the slab tiers' sum, so no separate sum runs either; and every
+    kernel gets its features as the view of one row-major table."""
+    _, name, kw, _ = layout
+    tt = build_hybrid_tensors(build_hybrid(graphs[name], **kw), device="cpu")
+    gathers, adds, inside, operands = [], [], [], []
+    select, add = torch.Tensor.index_select, torch.Tensor.__add__
+
+    def counting_select(t, *a, **k):
+        if not inside:
+            gathers.append(a)
+        return select(t, *a, **k)
+
+    def counting_add(t, *a, **k):
+        if not inside:
+            adds.append(a)
+        return add(t, *a, **k)
+
+    for kname in spmm_cuda.KERNELS:
+        fn = getattr(spmm_cuda, kname)
+
+        def kernel(*a, _f=fn, **k):
+            operands.extend(t for t in a if isinstance(t, torch.Tensor)
+                            and t.is_floating_point())
+            inside.append(1)
+            try:
+                return _f(*a, **k)
+            finally:
+                inside.pop()
+
+        monkeypatch.setattr(spmm_cuda, kname, kernel)
+    monkeypatch.setattr(torch.Tensor, "index_select", counting_select)
+    monkeypatch.setattr(torch.Tensor, "__add__", counting_add)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (6, tt.num_rows)).astype(np.float32))
+    hybrid_aggregate(x, tt, False)
+    assert tt.res_src is not None
+    assert len(gathers) == (1 if tt.hot_k else 0)
+    assert adds == []
+    # features (not the addend) arrive as the transposed view of a table
+    feats = [t for t in operands if t.dtype == torch.float32
+             and t.shape[0] == 6 and t.stride(0) == 1]
+    assert feats and all(t.stride(1) == 8 for t in feats)

@@ -95,10 +95,11 @@ def test_auto_method_below_dense_limit_is_not_ported(small_graph):
 
 def test_layers_straddling_the_gather_width_limit(monkeypatch):
     """GCN aggregates at the hidden width, then at the class count; when
-    the width limit falls between them, the layers differ in their
-    residual gather only, as in the JAX decider."""
+    the JAX width limit falls between them, the JAX layers differ in their
+    residual gather.  The port's layers share one tensor set, whose
+    ``res_src`` is each JAX layer's composed ids: its residual kernel
+    gathers by them at any width."""
     from gnnadvisor_osdi21_tpu.graphs import hybrid as jax_hybrid
-    from gnnadvisor_osdi21_tpu_torch.ops import hybrid_agg
 
     g = synthesize_graph(6000, 60000, num_features=12, num_classes=22,
                          kind="web", seed=2)
@@ -106,14 +107,15 @@ def test_layers_straddling_the_gather_width_limit(monkeypatch):
     hg = th.build_hybrid(g, diag_b=0, hot_k=0)
     assert hg.res_single
     limit = hg.num_res_slots * 10  # between 8 and 22 columns
-    monkeypatch.setattr(hybrid_agg, "RES_SINGLE_MAX_CELLS", limit)
     monkeypatch.setattr(jax_hybrid, "RES_SINGLE_MAX_CELLS", limit)
     ht_in, ht_hid = tp.build_tensors(device="cpu")
     jin, jhid = JaxProperty(
         g, hidden_dim=8, diag_b=0, hot_k=0, probe=False
     ).decider().build_tensors()
-    for t, j in ((ht_in, jin), (ht_hid, jhid)):
-        assert (t.res_gather is None) == (j.res_gather is None)
-        assert np.array_equal(t.res_dst.numpy(), np.asarray(j.res_dst))
-    assert ht_in.res_gather is None and ht_hid.res_gather is not None
+    assert jin.res_gather is None and jhid.res_gather is not None
+    assert ht_in is ht_hid
+    for j in (jin, jhid):
+        dst = np.asarray(j.res_dst)
+        rows = dst if j.res_gather is None else np.asarray(j.res_gather)[dst]
+        assert np.array_equal(ht_in.res_src.numpy(), rows)
     assert ht_hid.res_mask_s is ht_in.res_mask_s

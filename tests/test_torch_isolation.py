@@ -120,6 +120,12 @@ def _cuda_typed(t: torch.Tensor) -> torch.Tensor:
     return torch.Tensor._make_subclass(_CudaTyped, t)
 
 
+def _cuda_view(x_t: torch.Tensor) -> torch.Tensor:
+    """x_t as the transposed kernels take it (the transposed view of a
+    row-major table), reporting a CUDA device."""
+    return _cuda_typed(spmm_cuda.row_table_t(x_t).t()[: x_t.shape[0]])
+
+
 @pytest.mark.parametrize("kernel", spmm_cuda.KERNELS)
 def test_cuda_tensors_never_reach_the_plain_version(kernel, monkeypatch):
     """Stub the plain versions to fail and the launchers to record: a
@@ -136,8 +142,8 @@ def test_cuda_tensors_never_reach_the_plain_version(kernel, monkeypatch):
             lambda *a, _n=name: launched.append(_n) or "launched",
         )
     bits = _cuda_typed(torch.zeros((4, 512), dtype=torch.uint16))
-    x_hot = _cuda_typed(torch.zeros((8, 64)))
-    x = _cuda_typed(torch.zeros((8, 512)))
+    x_hot = _cuda_view(torch.zeros((8, 64)))
+    x = _cuda_view(torch.zeros((8, 512)))
     t2b = _cuda_typed(torch.tensor([0, 1], dtype=torch.int32))
     ptr = _cuda_typed(torch.tensor([0, 1, 2], dtype=torch.int32))
     if kernel == "slab_matmul_t":
@@ -146,8 +152,10 @@ def test_cuda_tensors_never_reach_the_plain_version(kernel, monkeypatch):
         got = spmm_cuda.fused_slab_matmul_t(bits, bits, x, x_hot, 64)
     elif kernel == "residual_combine_t":
         mask = _cuda_typed(torch.zeros((2, 2 * 256), dtype=torch.uint16))
-        rows = _cuda_typed(torch.zeros((8, 2 * 32)))
-        got = spmm_cuda.residual_combine_t(rows, mask, t2b, ptr, 512, 256)
+        src = _cuda_typed(torch.arange(2 * 32, dtype=torch.int32))
+        got = spmm_cuda.residual_combine_t(
+            _cuda_view(torch.zeros((8, 100))), src, mask, t2b, ptr, 512, 256,
+            addend=_cuda_typed(torch.zeros((8, 512))))
     elif kernel == "slab_matmul":
         got = spmm_cuda.slab_matmul(bits, _cuda_typed(torch.zeros((64, 8))))
     elif kernel == "fused_slab_matmul":
@@ -166,4 +174,4 @@ def test_cuda_tensors_never_reach_the_plain_version(kernel, monkeypatch):
 def test_mixed_devices_are_refused():
     bits = torch.zeros((4, 512), dtype=torch.uint16)
     with pytest.raises(ValueError, match="one CUDA device"):
-        spmm_cuda.slab_matmul_t(bits, _cuda_typed(torch.zeros((8, 64))))
+        spmm_cuda.slab_matmul_t(bits, _cuda_view(torch.zeros((8, 64))))
