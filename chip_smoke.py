@@ -45,7 +45,10 @@ PyTorch version on the card:
 - phase 7: the probe kernels (``ops/probe_cuda.py``) against their plain
   versions at every dtype pair, block size and K of their path, at a
   reduced and at the full R, with their time, bound, plain time and
-  library times;
+  library times; the dense ring kernels also on int8 slabs of every value
+  in [-128, 127], at R = 8,200 (a multiple of 8, not of their 256-row
+  tile) and K = 32 and 80 (not a multiple of their stage), and with equal
+  results for every block size the scripts pass;
 - phase 8: the probe scripts ``bench.fixprobe``, ``bench.stepprobe`` and
   ``bench.fmtprobe``, run unmodified in this process (their launches are
   the probe kernels' path);
@@ -141,8 +144,8 @@ SOURCES = {
     "fused_slab_matmul": "gnnadvisor_osdi21_tpu_torch/csrc/slab.cu",
     "residual_combine": "gnnadvisor_osdi21_tpu_torch/csrc/residual.cu",
     "bit_slab_t": "gnnadvisor_osdi21_tpu_torch/csrc/probe_slab.cu",
-    "i8_slab_t": "gnnadvisor_osdi21_tpu_torch/csrc/probe_slab.cu",
-    "dense_slab": "gnnadvisor_osdi21_tpu_torch/csrc/probe_slab.cu",
+    "i8_slab_t": "gnnadvisor_osdi21_tpu_torch/csrc/dense_slab.cu",
+    "dense_slab": "gnnadvisor_osdi21_tpu_torch/csrc/dense_slab.cu",
     "stream_sum": "gnnadvisor_osdi21_tpu_torch/csrc/fmt_probe.cu",
     "i8_slab": "gnnadvisor_osdi21_tpu_torch/csrc/fmt_probe.cu",
     "bit_slab": "gnnadvisor_osdi21_tpu_torch/csrc/fmt_probe.cu",
@@ -1135,17 +1138,35 @@ def probe_slab(k: int, r: int, seed: int):
     return bits, a8, (key // k, key % k)
 
 
+def blocks_agree(label: str, run, blocks) -> None:
+    """The dense ring kernels size their own tiles: every ``block_rows``
+    the scripts pass launches the same kernel, so the results are equal."""
+    first = run(blocks[0])
+    for bm in blocks[1:]:
+        require(torch.equal(run(bm), first),
+                f"{label}: block {bm} differs from block {blocks[0]}")
+    log(f"  {label}: blocks {blocks} give equal results")
+
+
 def phase7(recs) -> None:
     """Each probe kernel against its plain version: every dtype pair,
     block size and K of its path at a reduced R, the path's largest K at
-    the full R; timed at the full R with its bound, its plain version and
-    the library calls."""
+    the full R; the dense ring kernels also at the edges of their ring and
+    on every int8 value; timed at the full R with its bound, its plain
+    version and the library calls."""
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     bf16 = torch.bfloat16
     log("phase 7: the probe kernels against their plain versions on the card")
     bit_blocks = (128, 256, 512)  # fixprobe's br 2048, 4096, 8192
     i8_blocks = (128, 256)  # br 2048, 4096
     dense_blocks = (32, 64, 128)  # stepprobe's br 512, 1024, 2048
+
+    def abs_tol(plain, a, x):
+        """Dense sums over K terms of any int8 value: 2^-16 of the terms'
+        magnitudes (phase 10's dense form with |A| for A); the products
+        are exact, only the order of the f32 sums differs."""
+        t = plain(a.float().abs(), x.float().abs())
+        return ATOL + 2.0 ** -16 * t, "1e-4 + 2^-16·(|A|·|x|)"
     checks = [(PROBE_R_SMALL, k) for k in (128, 512, 1024, 2048, 4096)]
     checks.append((PROBE_R, 4096))
     for r, k in checks:
@@ -1159,6 +1180,10 @@ def phase7(recs) -> None:
         for bm in i8_blocks:
             compare(recs["i8_slab_t"], f"i8_slab_t R={r} K={k} block {bm}",
                     lambda: probe_cuda.i8_slab_t(a8, x_t, bm), lambda: want)
+        if r == PROBE_R:
+            blocks_agree(f"i8_slab_t R={r} K={k}",
+                         lambda bm: probe_cuda.i8_slab_t(a8, x_t, bm),
+                         i8_blocks)
         del bits, want
         if k not in (512, 1024, 2048) and r == PROBE_R_SMALL:
             continue
@@ -1172,7 +1197,58 @@ def phase7(recs) -> None:
                 compare(recs["dense_slab"],
                         f"dense_slab R={r} K={k_dense} {sdt}/{xdt} block {bm}",
                         lambda: probe_cuda.dense_slab(a, x, bm), lambda: want)
+            if r == PROBE_R:
+                blocks_agree(f"dense_slab R={r} K={k_dense} {sdt}/{xdt}",
+                             lambda bm: probe_cuda.dense_slab(a, x, bm),
+                             dense_blocks)
         del a8, a, want
+
+    # --- the dense ring kernels at the ring's edges, on every int8 value --
+    # R = 8,200: not a multiple of the 256-row tile, and int8 rows that
+    # start 8 bytes off a 16-byte boundary; K = 32 and 80: one partial
+    # stage, and a whole stage and a part (64 int8 or 32 bf16 columns)
+    for r, k in ((8_200, 32), (8_200, 80), (PROBE_R_SMALL, 4096),
+                 (PROBE_R, 4096)):
+        for kind in ("0/1", "int8"):
+            if kind == "int8":
+                a8 = torch.randint(-128, 128, (k, r), generator=gen,
+                                   device=DEVICE, dtype=torch.int8)
+            elif r != PROBE_R:
+                a8 = torch.randint(0, 2, (k, r), generator=gen,
+                                   device=DEVICE, dtype=torch.int8)
+            else:
+                continue  # the full R's 0/1 slabs are checked above
+            x_t = features(16, k, bf16, gen)
+            want = probe_cuda.i8_slab_t_plain(a8, x_t)
+            tol = abs_tol(probe_cuda.i8_slab_t_plain, a8, x_t)
+            for bm in i8_blocks:
+                compare(recs["i8_slab_t"],
+                        f"i8_slab_t R={r} K={k} {kind} block {bm}",
+                        lambda: probe_cuda.i8_slab_t(a8, x_t, bm),
+                        lambda: want, *tol)
+            if r == PROBE_R:
+                blocks_agree(f"i8_slab_t R={r} K={k} {kind}",
+                             lambda bm: probe_cuda.i8_slab_t(a8, x_t, bm),
+                             i8_blocks)
+            del want, tol
+            k_dense = min(k, 2048)
+            a8 = a8[:k_dense].contiguous()
+            for sdt, xdt in probe_cuda.DENSE_DTYPES:
+                a = a8.to(sdt)  # every int8 value is exact in bf16
+                x = row_features(k_dense, 16, xdt, gen)
+                want = probe_cuda.dense_slab_plain(a, x)
+                tol = abs_tol(probe_cuda.dense_slab_plain, a, x)
+                label = f"dense_slab R={r} K={k_dense} {sdt}/{xdt} {kind}"
+                for bm in dense_blocks:
+                    compare(recs["dense_slab"], f"{label} block {bm}",
+                            lambda: probe_cuda.dense_slab(a, x, bm),
+                            lambda: want, *tol)
+                if r == PROBE_R:
+                    blocks_agree(label,
+                                 lambda bm: probe_cuda.dense_slab(a, x, bm),
+                                 dense_blocks)
+                del a, want, tol
+            del a8
 
     # --- timed at the full R: each kernel at its path's widest K ---------
     def yardsticks(label, kernel, plain, sparse, dense_bf16, nbytes, flops,
@@ -1221,8 +1297,10 @@ def phase7(recs) -> None:
                 a = a8.to(sdt)
                 x = row_features(k, 16, xdt, gen)
                 xb, x32 = x.to(bf16), x.float()
-                rate = (F32_OPS_PER_S if xdt == torch.float32
-                        else BF16_TC_OPS_PER_S)
+                # f32 features: the same contraction, exact on the bf16
+                # tensor cores as three bf16 terms of x (the kernel's
+                # split), so three times the bf16 flops bound it
+                terms = 3 if xdt == torch.float32 else 1
                 yardsticks(
                     f"dense_slab R={r} K={k} {sdt}/{xdt} block 128",
                     lambda: probe_cuda.dense_slab(a, x, 128),
@@ -1230,7 +1308,7 @@ def phase7(recs) -> None:
                     lambda: torch.sparse.mm(a_csr, x32),
                     lambda: a16.t() @ xb,
                     a.numel() * a.element_size() + x.numel() * x.element_size()
-                    + out_bytes, flops, rate,
+                    + out_bytes, terms * flops, BF16_TC_OPS_PER_S,
                     recs["dense_slab"] if sdt == torch.int8
                     and xdt == bf16 else None)
                 del a

@@ -10,10 +10,12 @@ script, on the card:
 - the gather of the residual tier's rows from ``[R, 16]`` (axis 0) and
   from ``[16, R]`` (axis 1), as ``index_select``.
 
-The JAX script's ``br`` is the rows of one TPU grid step; here it maps to
-``br // 16`` rows per CUDA block of threads.  Each line appends the host's
-wall time to issue one call (``utils.timing``: a host-bound line shows
-it) and the CUDA block shape.
+The JAX script's ``br`` is the rows of one TPU grid step; for the bit
+slab it maps to ``br // 16`` rows per CUDA block of threads.  The int8
+slab's kernel sizes its own blocks (``probe_cuda.DENSE_BLOCK``), so on the
+card its ``br`` points of one K time the same launch.  Each line appends
+the host's wall time to issue one call (``utils.timing``: a host-bound line
+shows it) and the CUDA block shape.
 
 Usage: python -m gnnadvisor_osdi21_tpu_torch.bench.fixprobe   (on the card)
 """
@@ -93,7 +95,7 @@ def main(argv=None) -> int:
                 iters=args.iters, stats=st)
             ps = (sec / r - 0.5e-9) / ks * 1e12
             report(f"i8T  K={ks} bf16 br={br_} (~{ps:4.1f}ps/slot)", sec,
-                   st["host_s"], f"cuda block {bm} rows x {bm} thr")
+                   st["host_s"], f"cuda block: {probe_cuda.DENSE_BLOCK}")
         del a8s, bits_s
 
     # 5: gather economics under each layout ----------------------------------

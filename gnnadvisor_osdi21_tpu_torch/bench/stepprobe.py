@@ -10,8 +10,10 @@ per-column part (SLAB_B).  ``block_rows`` is the TPU's grid-step size;
 the CUDA kernel sizes its own blocks (256 threads), so on the card the
 ``br`` points of one shape time the same launch and show the noise.
 Section 2 times dense 0/1 slabs (int8 or bf16) with no unpack at all
-(``probe_cuda.dense_slab``, tensor cores for bf16 features, CUDA cores
-for f32), with ``br`` mapped to ``br // 16`` rows per CUDA block.
+(``probe_cuda.dense_slab``, on the tensor cores for bf16 and for f32
+features, which it splits exactly into three bf16 terms); that kernel also
+sizes its own blocks (``probe_cuda.DENSE_BLOCK``), so its ``br`` points
+of one shape time the same launch too.
 
 The same sections, shapes, seeds, sweeps and line formats as the JAX
 script; each line appends the host's wall time to issue one call and the
@@ -106,8 +108,8 @@ def main(argv=None) -> int:
                     f"K={k:5d} slab={name(sdt):9s} x={name(xdt):9s} "
                     f"br={br:5d}: {sec*1e3:7.3f} ms  {sec/r*1e9:6.2f} ns/row "
                     f"{sec/(r*k)*1e12:5.2f} ps/slot  {gbs:5.0f} GB/s  host "
-                    f"{st['host_s']*1e3:7.3f} ms  cuda block {bm} rows x "
-                    f"{bm} thr",
+                    f"{st['host_s']*1e3:7.3f} ms  cuda block: "
+                    f"{probe_cuda.DENSE_BLOCK}",
                     flush=True,
                 )
             del a_t

@@ -1,7 +1,8 @@
 // Asynchronous copies into shared memory on Hopper, as inline PTX:
 // mbarriers and bulk copies (the copy engine, "TMA", without a tensor
-// map) for the row-major slab stream (slab.cu), and 16-byte cp.async
-// with commit groups for the residual's row gather (residual.cu).
+// map) for the row-major slab stream (slab.cu), tensor-map boxes for the
+// dense slab ring (dense_slab.cu), and 16-byte cp.async with commit groups
+// for the residual's row gather (residual.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -61,6 +62,20 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// One box of a 2-D tensor map (``map`` a __grid_constant__ kernel
+// parameter) at element coordinates (x, y) into shared memory (128-byte
+// aligned); the whole box's bytes, zeros past the tensor included, are
+// counted on ``bar``.
+__device__ __forceinline__ void tensor_load_2d(void* dst, const void* map,
+                                               int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+      "r"(smem_addr(bar))
       : "memory");
 }
 

@@ -1,22 +1,18 @@
-// Dense 0/1 slab contractions of the measurement probes: a slab of K
-// columns over R graph rows, contracted over K with a 16-wide feature
-// table on the tensor cores (bf16 operands) or the CUDA cores (f32).
+// The legacy uint32 transposed bit slab of the measurement probes,
+// contracted over K with a 16-wide feature table on the tensor cores (bf16
+// operands).
 //
-// Replaces the TPU kernels of the probe scripts:
+// Replaces the TPU kernel of the probe scripts:
 //   _bit_t_kernel  (gnnadvisor_osdi21_tpu/bench/fixprobe.py:63, pallas_call
 //                   at :76): out[16, R] = x_t[16, K] @ unpack(bits [K/32, R])
-//                   from the legacy uint32 transposed bit slab;
-//   _i8_t_kernel   (fixprobe.py:94, pallas_call at :105):
-//                   out[16, R] = x_t[16, K] @ A, A int8 0/1 [K, R];
-//   _dense_kernel  (gnnadvisor_osdi21_tpu/bench/stepprobe.py:69, pallas_call
-//                   at :82): out[R, 16] = A^T @ x[K, 16], A int8 or bf16
-//                   0/1 [K, R], x bf16 or f32.
+//                   from the legacy uint32 transposed bit slab.
+// (The dense slabs of fixprobe and stepprobe, _i8_t_kernel and
+// _dense_kernel, run on the streamed ring of dense_slab.cu.)
 //
 // What bounds it.  Bytes: the slab crosses device memory once (K/8 bytes
-// per row as bits, K as int8, 2K as bf16) and the output once (64 bytes per
-// row); the table is at most 128 KB.  The tensor cores' 2·16·K flops per
-// row stay below the byte time at every K of the probes (bf16), but the f32
-// contraction on the CUDA cores (67 TFLOP/s) is bound by its operations.
+// per row) and the output once (64 bytes per row); the table is at most
+// 128 KB.  The tensor cores' 2·16·K flops per row stay below the byte time
+// at every K of the probes.
 //
 // Design.  Graph rows are the MMA's N dimension and the 16 features its M,
 // so one warp's feature fragment serves all the rows it owns.  A block of
@@ -24,22 +20,17 @@
 // rows over 16: the probes sweep it as the TPU sweeps its block); each warp
 // owns 32 of them, four n8 tiles of mma.sync.m16n8k16 (bf16 in, f32
 // accumulate).  The K axis is walked in steps of 32 slab columns: the block
-// stages the 0/1 tile [32, block_rows] in shared memory as bf16, converted
-// from the slab's own type (one uint32 word's 32 bits, int8 bytes widened,
-// or bf16 copied), and the matching 16 x 32 feature tile; then two k16
-// MMA steps per n8 tile.  Rows of both tiles are padded by 8 bf16 so that
-// the fragment loads hit 32 distinct banks.  A 0/1 value is exact in bf16
-// and its product with a bf16 feature is exact in f32, so the kernel
-// differs from the plain version by summation order only.
+// stages the 0/1 tile [32, block_rows] in shared memory as bf16, unpacked
+// from one uint32 word's 32 bits, and the matching 16 x 32 feature tile;
+// then two k16 MMA steps per n8 tile.  Rows of both tiles are padded by 8
+// bf16 so that the fragment loads hit 32 distinct banks.  A 0/1 value is
+// exact in bf16 and its product with a bf16 feature is exact in f32, so
+// the kernel differs from the plain version by summation order only.
 //
 // The bit slab puts column j in word j % W32 at bit j // W32: word w holds
 // columns w, W32 + w, 2·W32 + w, ...  So the K steps walk words, not runs
 // of columns, and the feature tile of word w stages x_t[:, b·W32 + w] at
 // tile column b.  The contraction is the same sum in another order.
-//
-// The f32 variant (int8 slab, f32 features) runs on the CUDA cores: one
-// thread per graph row, 16 f32 accumulators, the feature tile [32, 16]
-// staged in shared memory and read by broadcast.  No TF32 anywhere.
 // No atomics; every output element is written once by one thread.
 
 #include <cuda_runtime.h>
@@ -53,7 +44,7 @@ constexpr int kStep = 32;  // slab columns per staged tile (two k16 steps)
 constexpr int kPad = 8;    // bf16 pad per shared row: conflict-free fragments
 constexpr uint16_t kOne = 0x3F80;  // 1.0 in bf16
 
-enum Src { kBits32 = 0, kInt8 = 1, kBf16 = 2 };
+enum Src { kBits32 = 0 };
 
 // c[0:4] += A (16 x 16, row-major fragment a) x B (16 x 8, column fragment
 // b0, b1): bf16 operands, f32 accumulate (PTX ISA, mma.m16n8k16).
@@ -66,58 +57,21 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// int8 -> bf16 bits: every int8 value has at most 8 significant bits, so
-// the f32's upper half is the exact bf16.
-__device__ __forceinline__ uint32_t i8_to_bf16(int8_t v) {
-  return __float_as_uint(static_cast<float>(v)) >> 16;
-}
-
-// The low two bytes of ``w`` (int8, little-endian) as two packed bf16.
-__device__ __forceinline__ uint32_t i8_pair_to_bf16(uint32_t w) {
-  return i8_to_bf16(static_cast<int8_t>(w & 0xFF)) |
-         (i8_to_bf16(static_cast<int8_t>((w >> 8) & 0xFF)) << 16);
-}
-
 // Stage slab columns [kc, kc + kStep) of rows [r0, r0 + BM) as bf16 into
-// sa [kStep][BM + kPad].  For the bit slab, the step is word kc / 32 and
-// tile column b is bit b.
+// sa [kStep][BM + kPad]: the step is word kc / 32 and tile column b is bit b.
 template <int SRC>
 __device__ __forceinline__ void stage_slab(const void* slab, int R, int kc,
                                            int r0, int BM, uint16_t* sa) {
+  static_assert(SRC == kBits32, "the dense slabs run in dense_slab.cu");
   const int ld = BM + kPad;
-  if (SRC == kBits32) {
-    const int r = r0 + threadIdx.x;
-    const uint32_t w =
-        r < R ? __ldg(static_cast<const uint32_t*>(slab) +
-                      static_cast<size_t>(kc / 32) * R + r)
-              : 0u;
+  const int r = r0 + threadIdx.x;
+  const uint32_t w =
+      r < R ? __ldg(static_cast<const uint32_t*>(slab) +
+                    static_cast<size_t>(kc / 32) * R + r)
+            : 0u;
 #pragma unroll
-    for (int b = 0; b < 32; ++b)
-      sa[b * ld + threadIdx.x] = ((w >> b) & 1u) ? kOne : 0;
-    return;
-  }
-  // int8 or bf16: pieces of 8 consecutive rows (R is a multiple of 8)
-  const int per_row = BM / 8;
-  for (int i = threadIdx.x; i < kStep * per_row; i += blockDim.x) {
-    const int k = i / per_row, c = i % per_row, r = r0 + 8 * c;
-    uint4 q = make_uint4(0, 0, 0, 0);
-    if (r < R) {
-      const size_t at = static_cast<size_t>(kc + k) * R + r;
-      if (SRC == kInt8) {
-        const uint2 v =
-            __ldg(reinterpret_cast<const uint2*>(
-                static_cast<const int8_t*>(slab) + at));
-        q.x = i8_pair_to_bf16(v.x);
-        q.y = i8_pair_to_bf16(v.x >> 16);
-        q.z = i8_pair_to_bf16(v.y);
-        q.w = i8_pair_to_bf16(v.y >> 16);
-      } else {
-        q = __ldg(reinterpret_cast<const uint4*>(
-            static_cast<const uint16_t*>(slab) + at));
-      }
-    }
-    *reinterpret_cast<uint4*>(sa + k * ld + 8 * c) = q;
-  }
+  for (int b = 0; b < 32; ++b)
+    sa[b * ld + threadIdx.x] = ((w >> b) & 1u) ? kOne : 0;
 }
 
 // out = contraction of the slab with the 16-wide bf16 table x.
@@ -195,47 +149,6 @@ __global__ void __launch_bounds__(512)
   }
 }
 
-// out[R, 16] = A^T @ x with an int8 slab and f32 features, on the CUDA
-// cores: one thread per graph row.
-__global__ void __launch_bounds__(512)
-    dense_f32_kernel(const int8_t* __restrict__ slab, int K, int R,
-                     const float* __restrict__ x, float* __restrict__ out) {
-  __shared__ __align__(16) float sx[kStep * kFeat];
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  float acc[kFeat];
-#pragma unroll
-  for (int f = 0; f < kFeat; ++f) acc[f] = 0.f;
-  for (int kc = 0; kc < K; kc += kStep) {
-    for (int i = threadIdx.x; i < kStep * kFeat; i += blockDim.x)
-      sx[i] = x[static_cast<size_t>(kc) * kFeat + i];
-    __syncthreads();
-    if (r < R) {
-#pragma unroll 8
-      for (int k = 0; k < kStep; ++k) {
-        const float a = static_cast<float>(
-            __ldg(slab + static_cast<size_t>(kc + k) * R + r));
-        const float4* row = reinterpret_cast<const float4*>(sx + k * kFeat);
-#pragma unroll
-        for (int q = 0; q < kFeat / 4; ++q) {
-          const float4 v = row[q];
-          acc[4 * q + 0] = fmaf(a, v.x, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(a, v.y, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(a, v.z, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(a, v.w, acc[4 * q + 3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (r < R) {
-    float4* o = reinterpret_cast<float4*>(out + static_cast<size_t>(r) * kFeat);
-#pragma unroll
-    for (int q = 0; q < kFeat / 4; ++q)
-      o[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
-                         acc[4 * q + 3]);
-  }
-}
-
 inline bool bad_shape(int K, int R, int block_rows) {
   return K <= 0 || K % kStep || R <= 0 || R % 8 || block_rows < 32 ||
          block_rows > 512 || block_rows % 32;
@@ -268,32 +181,6 @@ int gnna_bit_slab_t(const void* bits, int w32, int R, const void* x_t,
   using namespace gnna::probe;
   return launch_mma<kBits32, true>(bits, 32 * w32, R, x_t, block_rows, out,
                                    static_cast<cudaStream_t>(stream));
-}
-
-// a int8 [K, R], x_t bf16 [16, K] -> out f32 [16, R].
-int gnna_i8_slab_t(const void* a, int K, int R, const void* x_t,
-                   int block_rows, void* out, void* stream) {
-  using namespace gnna::probe;
-  return launch_mma<kInt8, true>(a, K, R, x_t, block_rows, out,
-                                 static_cast<cudaStream_t>(stream));
-}
-
-// a [K, R] (int8, or bf16 when a_bf16), x [K, 16] (bf16, or f32 when x_f32,
-// which takes an int8 slab) -> out f32 [R, 16].
-int gnna_dense_slab(const void* a, int a_bf16, int K, int R, const void* x,
-                    int x_f32, int block_rows, void* out, void* stream) {
-  using namespace gnna::probe;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_f32) {
-    if (a_bf16 || bad_shape(K, R, block_rows))
-      return static_cast<int>(cudaErrorInvalidValue);
-    dense_f32_kernel<<<(R + block_rows - 1) / block_rows, block_rows, 0, s>>>(
-        static_cast<const int8_t*>(a), K, R, static_cast<const float*>(x),
-        static_cast<float*>(out));
-    return static_cast<int>(cudaGetLastError());
-  }
-  return a_bf16 ? launch_mma<kBf16, false>(a, K, R, x, block_rows, out, s)
-                : launch_mma<kInt8, false>(a, K, R, x, block_rows, out, s);
 }
 
 }  // extern "C"

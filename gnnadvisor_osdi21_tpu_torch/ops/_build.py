@@ -49,13 +49,14 @@ SIGNATURES = {
     "gnna_residual_combine": (
         _P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P,
     ),
-    # the probes' dense 0/1 slabs (csrc/probe_slab.cu):
+    # the probes' bit slab (csrc/probe_slab.cu):
     # bits, w32, R, x_t, block_rows, out, stream
     "gnna_bit_slab_t": (_P, _I, _I, _P, _I, _P, _P),
-    # a, K, R, x_t, block_rows, out, stream
-    "gnna_i8_slab_t": (_P, _I, _I, _P, _I, _P, _P),
-    # a, a_bf16, K, R, x, x_f32, block_rows, out, stream
-    "gnna_dense_slab": (_P, _I, _I, _I, _P, _I, _I, _P, _P),
+    # the probes' dense slabs (csrc/dense_slab.cu):
+    # a, K, R, x_t, frags, out, stream
+    "gnna_i8_slab_t": (_P, _I, _I, _P, _P, _P, _P),
+    # a, a_bf16, K, R, x, x_f32, frags, out, stream
+    "gnna_dense_slab": (_P, _I, _I, _I, _P, _I, _P, _P, _P),
     # the format probe's kernels (csrc/fmt_probe.cu):
     # a, src, g, block_bytes, s, out, stream
     "gnna_stream_sum": (_P, _I, _I, _L, _P, _P, _P),

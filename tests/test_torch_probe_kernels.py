@@ -208,6 +208,115 @@ def test_dense_slab_matches_jax(k, slab, feat):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+# The JAX kernels cast any int8 slab value, not only 0/1: so do the port's.
+@pytest.mark.parametrize("kernel", ("i8_slab_t", "dense_slab"))
+def test_dense_slabs_take_every_int8_value_like_jax(kernel):
+    k, r = 128, 1024
+    a = np.random.default_rng(50).integers(-128, 128, (k, r)).astype(np.int8)
+    if kernel == "i8_slab_t":
+        xj, xt = _both(np.random.default_rng(51).standard_normal(
+            (16, k)).astype(np.float32), "bfloat16")
+        want = np.asarray(i8_slab_t(jnp.asarray(a), xj, br_=512))
+        got = probe_cuda.i8_slab_t(torch.from_numpy(a), xt)
+    else:
+        xj, xt = _both(np.random.default_rng(52).standard_normal(
+            (k, 16)).astype(np.float32), "float32")
+        want = np.asarray(dense_slab(jnp.asarray(a), xj, br=512))
+        got = probe_cuda.dense_slab(torch.from_numpy(a), xt)
+    # sums of 128 products up to 128·|x|: 1e-5 relative to the terms' sum
+    scale = np.abs(a).astype(np.float32).sum(0).max() * 4
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * scale)
+
+
+# --- the dense kernels' arithmetic (csrc/dense_slab.cu), emulated ------------
+
+
+def _prmt(a, b, sel: int):
+    """PTX prmt.b32 in its default mode on uint32 arrays: result byte i is
+    byte (sel >> 4i) & 7 of the eight bytes [a, b]."""
+    src = [(a >> (8 * i)) & 0xFF for i in range(4)] + \
+        [(b >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(src[(sel >> (4 * i)) & 7] << (8 * i) for i in range(4)).astype(
+        np.uint32)
+
+
+def _bf16_halves(w):
+    """The two bf16 of a uint32 pair as f32 (low half first)."""
+    return ((w << 16).astype(np.uint32).view(np.float32),
+            (w & 0xFFFF0000).astype(np.uint32).view(np.float32))
+
+
+def _add_bf16x2(x, y):
+    """fma.rn.bf16x2 x·1 + y, for sums that are exact in bf16 (asserted)."""
+    out = np.zeros_like(x)
+    for shift, (p, q) in zip((0, 16), zip(_bf16_halves(x), _bf16_halves(y))):
+        bits = (p + q).astype(np.float32).view(np.uint32)
+        assert not (bits & 0xFFFF).any(), "the sum is not exact in bf16"
+        out |= ((bits >> 16) << shift).astype(np.uint32)
+    return out
+
+
+def _i8x4_to_bf16x2(p):
+    """The kernel's i8x4_to_bf16x2: bytes [b0, b1, b2, b3] -> the bf16
+    pairs (b0, b1) and (b2, b3), as 0x4300 | l plus 0xC300 | s << 7."""
+    lo7, sign = p & np.uint32(0x7F7F7F7F), p & np.uint32(0x80808080)
+    c, n = np.uint32(0x43434343), np.uint32(0xC3C3C3C3)
+    return (_add_bf16x2(_prmt(lo7, c, 0x4140), _prmt(sign, n, 0x4140)),
+            _add_bf16x2(_prmt(lo7, c, 0x4342), _prmt(sign, n, 0x4342)))
+
+
+def test_int8_to_bf16_without_i2f_is_the_cast_for_every_value():
+    """The kernel's int8 -> bf16 path (Frag<kInt8>::build: the interleave
+    of two slab rows, then the permutes and one bf16x2 FMA) gives, bit for
+    bit, torch's int8 -> bf16 cast of all 256 int8 values."""
+    vals = np.arange(-128, 128).astype(np.int8)
+    u = vals.view(np.uint32)  # 64 words of four values
+    v = np.roll(vals, 1).view(np.uint32)  # the next slab row
+    cast = torch.from_numpy(vals).to(torch.bfloat16).view(torch.int16)
+    cast = cast.numpy().view(np.uint16).astype(np.uint32)
+    cast_v = np.roll(cast, 1)
+    got = np.zeros((64, 4), np.uint32)
+    got_v = np.zeros((64, 4), np.uint32)
+    # [u.b0, v.b0, u.b1, v.b1] and [u.b2, v.b2, u.b3, v.b3]
+    for sel, bytes_ in ((0x5140, (0, 1)), (0x7362, (2, 3))):
+        for pair, byte in zip(_i8x4_to_bf16x2(_prmt(u, v, sel)), bytes_):
+            got[:, byte], got_v[:, byte] = pair & 0xFFFF, pair >> 16
+    np.testing.assert_array_equal(got.reshape(-1), cast)
+    np.testing.assert_array_equal(got_v.reshape(-1), cast_v)
+
+
+def _split3(x: np.ndarray):
+    """The kernel's split3: f32 x -> bf16 bits (hi, mid, lo), each the top
+    16 bits of what is left."""
+    top = np.uint32(0xFFFF0000)
+    hi = (x.view(np.uint32) & top).view(np.float32)
+    r1 = (x - hi).astype(np.float32)
+    mid = (r1.view(np.uint32) & top).view(np.float32)
+    r2 = (r1 - mid).astype(np.float32)
+    return hi, mid, r2, (r2.view(np.uint32) & top).view(np.float32)
+
+
+def test_f32_split_into_three_bf16_terms_is_exact():
+    """hi + mid + lo == x exactly for ±0 and every normal |x| >= 2^-103
+    (then each term is a normal bf16 of at most 8 significant bits): so
+    the int8/f32 pair runs on the bf16 tensor cores with no rounding of
+    the features."""
+    rng = np.random.default_rng(60)
+    normal = rng.standard_normal(4096) * 10.0 ** rng.uniform(-30, 30, 4096)
+    edges = [0.0, -0.0, 1e30, -1e30, 1e-30, -1e-30, 3.3e38, 2.0 ** -103,
+             -(2.0 ** -103) * (2 - 2.0 ** -23), np.nextafter(1e30, 2e30),
+             np.nextafter(1e-30, 0.0)]
+    x = np.concatenate([normal, edges, rng.standard_normal(4096)]).astype(
+        np.float32)
+    hi, mid, r2, lo = _split3(x)
+    np.testing.assert_array_equal(lo, r2)  # the last term is a whole bf16
+    for t in (hi, mid, lo):  # each is a bf16 value
+        assert not (t.view(np.uint32) & 0xFFFF).any()
+    total = hi.astype(np.float64) + mid.astype(np.float64) + lo.astype(
+        np.float64)
+    np.testing.assert_array_equal(total, x.astype(np.float64))
+
+
 # --- the slab builders -------------------------------------------------------
 
 
@@ -303,9 +412,9 @@ def test_cuda_launches_check_their_shapes(case, monkeypatch):
     kwargs = {}
     if case == "width":
         x = _cuda_typed(torch.zeros((64, 8), dtype=torch.bfloat16))
-    elif case == "k":
-        a = _cuda_typed(torch.zeros((48, 512), dtype=torch.int8))
-        x = _cuda_typed(torch.zeros((48, 16), dtype=torch.bfloat16))
+    elif case == "k":  # K must be a multiple of the MMA's k16 step
+        a = _cuda_typed(torch.zeros((40, 512), dtype=torch.int8))
+        x = _cuda_typed(torch.zeros((40, 16), dtype=torch.bfloat16))
     elif case == "block":
         kwargs["block_rows"] = 48
     else:
