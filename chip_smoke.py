@@ -24,11 +24,13 @@ PyTorch version on the card:
   ``torch.sparse.mm`` over all of the graph's edges; then each row-major
   kernel the same way, for D in {96, 64, 22, 16, 5}
   (the slab kernels also at 500 and 1433, wider than one 256-column
-  chunk; the residual combine gathering from x by its slot ids and over
-  gathered rows, each without and with an addend, timed against
-  ``torch.sparse.mm`` over its edges read from x, and stopping, in a
-  process of its own, on a slot id past x), and the whole row-major
-  aggregation against ``torch.sparse.mm`` over all of the graph's edges;
+  chunk, with integer features exactly and random f32 features within
+  their summation bound; the residual combine gathering from x by its
+  slot ids and over gathered rows, each without and with an addend,
+  timed against ``torch.sparse.mm`` over its edges read from x, and
+  stopping, in a process of its own, on a slot id past x), and the whole
+  row-major aggregation against ``torch.sparse.mm`` over all of the
+  graph's edges;
 - phase 3: GCN 96 -> 16 -> 22 training on the auto layout (transposed):
   the first step's loss and gradients against the plain path, launch
   counts and ``index_select`` gathers (the hot table's alone),
@@ -45,10 +47,13 @@ PyTorch version on the card:
 - phase 7: the probe kernels (``ops/probe_cuda.py``) against their plain
   versions at every dtype pair, block size and K of their path, at a
   reduced and at the full R, with their time, bound, plain time and
-  library times; the dense ring kernels also on int8 slabs of every value
-  in [-128, 127], at R = 8,200 (a multiple of 8, not of their 256-row
-  tile) and K = 32 and 80 (not a multiple of their stage), and with equal
-  results for every block size the scripts pass;
+  library times, and with equal results for every block size the scripts
+  pass; the dense ring kernels also on int8 slabs of every value in
+  [-128, 127], at R = 8,200 (a multiple of 8, not of their 256-row tile)
+  and K = 32 and 80 (not a multiple of their stage); the set-bit walk
+  (``bit_slab_t``) also on the slabs it could get wrong (every bit set,
+  bit 31 in every word, empty rows and tiles) at R = 8,200 and W32 = 4, 8
+  and 128;
 - phase 8: the probe scripts ``bench.fixprobe``, ``bench.stepprobe`` and
   ``bench.fmtprobe``, run unmodified in this process (their launches are
   the probe kernels' path);
@@ -57,7 +62,9 @@ PyTorch version on the card:
 - phase 10: the format probe's kernels (``ops/fmtprobe_cuda.py``) against
   their plain versions for every dtype, variant and block of their path,
   at a reduced and at fmtprobe's full shape, with their time, bound,
-  plain time and library time.
+  plain time and library time; the set-bit walk (``bit_slab``, both
+  variants) also on the slabs of phase 7 and with equal results for both
+  blocks.
 
 The layouts of phases 2-6 are built with the probe off, so that they are
 the cost model's.  Every check raises on failure, so the exit code is
@@ -124,10 +131,10 @@ ROW_DIMS = (96, 64, 22, 16, 5)  # the row-major kernels' widths
 # GIN's first aggregation runs at the input width: pubmed's and cora's,
 # tables the row-major slab kernel covers in chunks of 256 columns.  Their
 # checks use integer features in [-4, 4], whose every partial sum is exact
-# in f32, and require the kernel to equal its plain version exactly (rows
-# of the diag B=4096 slab sum hundreds of terms: with random f32 values
-# the two summation orders differ past 1e-4 + 1e-5·|plain| somewhere in
-# [R, 1433]).
+# in f32, and require the kernel to equal its plain version exactly; and
+# random f32 features, within 1e-4 + n·2^-24·(A·|x|), n the row's set bits
+# (rows of the diag B=4096 slab sum hundreds of terms: the two summation
+# orders differ past 1e-4 + 1e-5·|plain| somewhere in [R, 1433]).
 WIDE_DIMS = (500, 1433)
 DTYPES = (torch.float32, torch.bfloat16)
 GIN_HIDDEN = 64
@@ -143,12 +150,13 @@ SOURCES = {
     "slab_matmul": "gnnadvisor_osdi21_tpu_torch/csrc/slab.cu",
     "fused_slab_matmul": "gnnadvisor_osdi21_tpu_torch/csrc/slab.cu",
     "residual_combine": "gnnadvisor_osdi21_tpu_torch/csrc/residual.cu",
-    "bit_slab_t": "gnnadvisor_osdi21_tpu_torch/csrc/probe_slab.cu",
+    "bit_slab_t": "gnnadvisor_osdi21_tpu_torch/csrc/bit_walk.cu",
     "i8_slab_t": "gnnadvisor_osdi21_tpu_torch/csrc/dense_slab.cu",
     "dense_slab": "gnnadvisor_osdi21_tpu_torch/csrc/dense_slab.cu",
     "stream_sum": "gnnadvisor_osdi21_tpu_torch/csrc/fmt_probe.cu",
     "i8_slab": "gnnadvisor_osdi21_tpu_torch/csrc/fmt_probe.cu",
-    "bit_slab": "gnnadvisor_osdi21_tpu_torch/csrc/fmt_probe.cu",
+    "bit_slab": "gnnadvisor_osdi21_tpu_torch/csrc/bit_walk.cu",
+    fmtprobe_cuda.BIT_SLAB_F32: "gnnadvisor_osdi21_tpu_torch/csrc/bit_walk.cu",
     "seg_reduce": "gnnadvisor_osdi21_tpu_torch/csrc/fmt_probe.cu",
 }
 REPLACES = {
@@ -164,6 +172,7 @@ REPLACES = {
     "stream_sum": "gnnadvisor_osdi21_tpu/bench/fmtprobe.py:53",
     "i8_slab": "gnnadvisor_osdi21_tpu/bench/fmtprobe.py:118",
     "bit_slab": "gnnadvisor_osdi21_tpu/bench/fmtprobe.py:216",
+    fmtprobe_cuda.BIT_SLAB_F32: "gnnadvisor_osdi21_tpu/bench/fmtprobe.py:216",
     "seg_reduce": "gnnadvisor_osdi21_tpu/bench/fmtprobe.py:287",
 }
 # the amazon0505-scale graph's (edge count, fingerprint) by numpy version:
@@ -177,6 +186,11 @@ FMT_R, FMT_K = 410_624, 4096  # fmtprobe's default rows and slab columns
 FMT_SMALL = (8_192, 256)  # the reduced (R, K) of its kernels' checks
 # fmtprobe's (TILE, OB) pairs of the segment reduce
 SEG_PAIRS = ((256, 256), (512, 512), (256, 512), (512, 256), (1024, 512))
+# the slabs a walk over set bits could get wrong (bit_slab, bit_slab_t), at
+# R = 8,200 (a last tile of 8 rows: the walk's tiles are 128 rows) and W32
+# = 4, 8 (a stage of 16 words only partly filled) and 128
+HARD_KINDS = ("every bit set", "bit 31 in every word", "empty rows and tiles")
+HARD_R, HARD_KS = 8_200, (128, 256, 4096)
 
 T0 = time.perf_counter()
 
@@ -309,6 +323,39 @@ def slab_case(n: int, d: int, dtype, gen: torch.Generator):
         return row_features(n, d, dtype, gen), None, ""
     x = torch.randint(-4, 5, (n, d), generator=gen, device=DEVICE)
     return x.to(dtype), 0.0, "exact, integer features"
+
+
+def hard_words(kind: str, r: int, w32: int, rng) -> np.ndarray:
+    """A row-major uint32 bit slab [R, W32] of ``HARD_KINDS``: every bit
+    set, bit 31 in every word, or the probes' 6 set bits a row with every
+    third row empty and rows 256-1023 (six whole tiles) empty."""
+    if kind == "every bit set":
+        return np.full((r, w32), 0xFFFFFFFF, np.uint32)
+    if kind == "bit 31 in every word":
+        return np.full((r, w32), 1 << 31, np.uint32)
+    k = 32 * w32
+    words = pack_slab_bits(rng.integers(0, r, 6 * r), rng.integers(0, k, 6 * r),
+                           r, k)
+    words[::3] = 0
+    words[256:1024] = 0
+    return words
+
+
+def dyadic(shape, dtype, gen: torch.Generator) -> torch.Tensor:
+    """Features k/4, |k| <= 8: exact in bf16, every partial sum exact."""
+    return (torch.randint(-8, 9, shape, generator=gen, device=DEVICE,
+                          dtype=torch.float32) / 4).to(dtype)
+
+
+def walk_tol(count: torch.Tensor, abs_sum: torch.Tensor, exact: bool):
+    """A walk's tolerance against its plain version: exact for dyadic
+    features; else 1e-4 + 2·n·2^-24·(A·|x|), n the row's set bits (at most
+    K): each side's f32 sum of n exact products is within (n - 1)·2^-24 of
+    the sum of their magnitudes."""
+    if exact:
+        return torch.zeros_like(abs_sum), "exact, dyadic features"
+    return (ATOL + 2.0 * count * 2.0 ** -24 * abs_sum,
+            "1e-4 + 2·n·2^-24·(A·|x|), n the row's set bits")
 
 
 # every kernel's launch count at 0: a path's expected counts start here
@@ -702,6 +749,19 @@ def phase2_rowmajor(layouts, rm, recs) -> None:
                         lambda: spmm_cuda.slab_matmul(bits, x, block),
                         lambda: spmm_cuda.slab_matmul_plain(bits, x, block),
                         tol, tol_text)
+        # the wide tables with random f32 features too, within the bound of
+        # two f32 summation orders over the row's n set bits
+        count = spmm_cuda.slab_matmul_plain(
+            bits, torch.ones((n, 1), device=DEVICE), block)
+        for d in WIDE_DIMS:
+            x = row_features(n, d, torch.float32, gen)
+            tol = ATOL + count * 2.0 ** -24 * spmm_cuda.slab_matmul_plain(
+                bits, x.abs(), block)
+            compare(rec, f"slab_matmul {label} D={d} float32 random",
+                    lambda: spmm_cuda.slab_matmul(bits, x, block),
+                    lambda: spmm_cuda.slab_matmul_plain(bits, x, block), tol,
+                    "1e-4 + n·2^-24·(A·|x|), n the row's set bits")
+            del tol
     # timed at the main path's hidden aggregations (hot, D=64, bf16)
     bits = ht.hot_bits
     j, r = bit_coords(hg.hot_bits)
@@ -1139,8 +1199,9 @@ def probe_slab(k: int, r: int, seed: int):
 
 
 def blocks_agree(label: str, run, blocks) -> None:
-    """The dense ring kernels size their own tiles: every ``block_rows``
-    the scripts pass launches the same kernel, so the results are equal."""
+    """The dense ring kernels and the set-bit walks size their own tiles:
+    every ``block_rows`` the scripts pass launches the same kernel, so the
+    results are equal."""
     first = run(blocks[0])
     for bm in blocks[1:]:
         require(torch.equal(run(bm), first),
@@ -1152,8 +1213,8 @@ def phase7(recs) -> None:
     """Each probe kernel against its plain version: every dtype pair,
     block size and K of its path at a reduced R, the path's largest K at
     the full R; the dense ring kernels also at the edges of their ring and
-    on every int8 value; timed at the full R with its bound, its plain
-    version and the library calls."""
+    on every int8 value, the set-bit walk on ``HARD_KINDS``; timed at the
+    full R with its bound, its plain version and the library calls."""
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     bf16 = torch.bfloat16
     log("phase 7: the probe kernels against their plain versions on the card")
@@ -1176,6 +1237,10 @@ def phase7(recs) -> None:
         for bm in bit_blocks:
             compare(recs["bit_slab_t"], f"bit_slab_t R={r} K={k} block {bm}",
                     lambda: probe_cuda.bit_slab_t(bits, x_t, bm), lambda: want)
+        if r == PROBE_R:
+            blocks_agree(f"bit_slab_t R={r} K={k}",
+                         lambda bm: probe_cuda.bit_slab_t(bits, x_t, bm),
+                         bit_blocks)
         want = probe_cuda.i8_slab_t_plain(a8, x_t)
         for bm in i8_blocks:
             compare(recs["i8_slab_t"], f"i8_slab_t R={r} K={k} block {bm}",
@@ -1202,6 +1267,28 @@ def phase7(recs) -> None:
                              lambda bm: probe_cuda.dense_slab(a, x, bm),
                              dense_blocks)
         del a8, a, want
+
+    # --- the set-bit walk on the slabs it could get wrong ----------------
+    rng = np.random.default_rng(7)
+    for kind in HARD_KINDS:
+        for k in HARD_KS:
+            bits = torch.from_numpy(np.ascontiguousarray(
+                hard_words(kind, HARD_R, k // 32, rng).T)).to(DEVICE)
+            count = probe_cuda.bit_slab_t_plain(
+                bits, torch.ones((1, k), device=DEVICE))
+            for feat in ("dyadic", "normal"):
+                x_t = (dyadic((16, k), bf16, gen) if feat == "dyadic"
+                       else features(16, k, bf16, gen))
+                want = probe_cuda.bit_slab_t_plain(bits, x_t)
+                tol = walk_tol(count, probe_cuda.bit_slab_t_plain(
+                    bits, x_t.abs()), feat == "dyadic")
+                compare(recs["bit_slab_t"],
+                        f"bit_slab_t R={HARD_R} K={k} {kind} x {feat} "
+                        "block 128",
+                        lambda: probe_cuda.bit_slab_t(bits, x_t, 128),
+                        lambda: want, *tol)
+                del want, tol
+            del bits, count
 
     # --- the dense ring kernels at the ring's edges, on every int8 value --
     # R = 8,200: not a multiple of the 256-row tile, and int8 rows that
@@ -1276,13 +1363,14 @@ def phase7(recs) -> None:
         a_csr = csr(er, ec, (r, k))
         out_bytes = 16 * r * 4
         flops = 2 * 16 * k * r
+        # the walk's work: 16 f32 adds per set bit (the deduplicated edges)
         yardsticks(
-            f"bit_slab_t R={r} K={k} block 128",
+            f"bit_slab_t R={r} K={k} block 128 ({len(er)} set bits)",
             lambda: probe_cuda.bit_slab_t(bits, x_t, 128),
             lambda: probe_cuda.bit_slab_t_plain(bits, x_t),
             lambda: torch.sparse.mm(a_csr, xf), None,
-            bits.numel() * 4 + x_t.numel() * 2 + out_bytes, flops,
-            BF16_TC_OPS_PER_S, recs["bit_slab_t"] if k == 2048 else None)
+            bits.numel() * 4 + x_t.numel() * 2 + out_bytes, 16 * len(er),
+            F32_OPS_PER_S, recs["bit_slab_t"] if k == 2048 else None)
         del bits
         a16 = a8.to(bf16)
         yardsticks(
@@ -1528,36 +1616,69 @@ def phase10(recs) -> None:
             del a
 
         # --- bit_slab: bf16 and f32, blocks 512 and 1024 ------------------
-        rec = recs["bit_slab"]
+        # each variant has its own record: bf16 (base_bf16) is "bit_slab"
+        variants = (("bf16", bf16, recs["bit_slab"]),
+                    ("f32", f32, recs[fmtprobe_cuda.BIT_SLAB_F32]))
         rows_e, cols_e = rng.integers(0, r, 6 * r), rng.integers(0, k, 6 * r)
         bits = torch.from_numpy(pack_slab_bits(rows_e, cols_e, r, k)).to(DEVICE)
         for feat, x in (("dyadic", x_dy), ("normal", x_n)):
-            for variant, xv in (("bf16", x.to(bf16)), ("f32", x)):
+            for variant, dt, vrec in variants:
+                xv = x.to(dt)
                 want = fmtprobe_cuda.bit_slab_plain(bits, xv)
                 exact = feat == "dyadic"
                 for blk in (512, 1024):
-                    compare(rec, f"bit_slab R={r} K={k} {variant} x {feat} "
+                    compare(vrec, f"bit_slab R={r} K={k} {variant} x {feat} "
                             f"block {blk}",
                             lambda: fmtprobe_cuda.bit_slab(bits, xv, blk),
                             lambda: want,
                             torch.zeros_like(want) if exact else None,
                             "exact" if exact else "")
+                if full:
+                    blocks_agree(f"bit_slab R={r} K={k} {variant} x {feat}",
+                                 lambda blk: fmtprobe_cuda.bit_slab(
+                                     bits, xv, blk), (512, 1024))
                 del want
+        if not full:
+            # the set-bit walk on the slabs it could get wrong
+            for kind in HARD_KINDS:
+                for kh in HARD_KS:
+                    hbits = torch.from_numpy(
+                        hard_words(kind, HARD_R, kh // 32, rng)).to(DEVICE)
+                    count = fmtprobe_cuda.bit_slab_plain(
+                        hbits, torch.ones((kh, 1), device=DEVICE))
+                    for feat in ("dyadic", "normal"):
+                        xh = (dyadic((kh, 16), f32, gen) if feat == "dyadic"
+                              else torch.randn((kh, 16), generator=gen,
+                                               device=DEVICE))
+                        for variant, dt, vrec in variants:
+                            xv = xh.to(dt)
+                            want = fmtprobe_cuda.bit_slab_plain(hbits, xv)
+                            tol = walk_tol(count, fmtprobe_cuda.bit_slab_plain(
+                                hbits, xv.abs()), feat == "dyadic")
+                            compare(vrec, f"bit_slab R={HARD_R} K={kh} "
+                                    f"{variant} {kind} x {feat} block 512",
+                                    lambda: fmtprobe_cuda.bit_slab(
+                                        hbits, xv, 512),
+                                    lambda: want, *tol)
+                            del want, tol
+                    del hbits, count
         if full:
             key = np.unique(rows_e.astype(np.int64) * k + cols_e)
             a_csr = csr(key // k, key % k, (r, k))
             bits16 = torch.from_numpy(
                 pack_slab_bits_t(rows_e, cols_e, r, k)).to(DEVICE)
             xb = x_n.to(bf16)
-            for variant, xv, rate in (("bf16", xb, BF16_TC_OPS_PER_S),
-                                      ("f32", x_n, F32_OPS_PER_S)):
-                timed(rec, f"R={r} K={k} {variant} block 512 ({len(key)} nnz)",
+            # the walk's work: 16 f32 adds per set bit (the deduplicated
+            # edges), whatever the table's dtype
+            for variant, dt, vrec in variants:
+                xv = x_n.to(dt)
+                timed(vrec, f"R={r} K={k} {variant} block 512 ({len(key)} "
+                      "set bits)",
                       lambda: fmtprobe_cuda.bit_slab(bits, xv, 512),
                       lambda: fmtprobe_cuda.bit_slab_plain(bits, xv),
                       lambda: torch.sparse.mm(a_csr, x_n),
                       bits.numel() * 4 + xv.numel() * xv.element_size()
-                      + r * 16 * 4, 2 * r * k * 16,
-                      record=variant == "bf16", rate=rate)
+                      + r * 16 * 4, 16 * len(key), record=True)
             log(f"  slab_matmul (the bit walk, bf16) over the same edges: "
                 f"{time_ms(lambda: spmm_cuda.slab_matmul(bits16, xb)):.4f} ms")
             del a_csr, bits16
@@ -1628,7 +1749,7 @@ def main() -> int:
     layouts = build_layouts()
     rm = rowmajor_tensors(layouts)
     recs = {n: Record(n) for n in spmm_cuda.KERNELS + probe_cuda.KERNELS
-            + fmtprobe_cuda.KERNELS}
+            + tuple(fmtprobe_cuda.launches)}
     phase2(layouts, recs)
     phase2_rowmajor(layouts, rm, recs)
     epoch_ms = phase3(layouts, recs)

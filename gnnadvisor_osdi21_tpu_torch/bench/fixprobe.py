@@ -10,10 +10,11 @@ script, on the card:
 - the gather of the residual tier's rows from ``[R, 16]`` (axis 0) and
   from ``[16, R]`` (axis 1), as ``index_select``.
 
-The JAX script's ``br`` is the rows of one TPU grid step; for the bit
-slab it maps to ``br // 16`` rows per CUDA block of threads.  The int8
-slab's kernel sizes its own blocks (``probe_cuda.DENSE_BLOCK``), so on the
-card its ``br`` points of one K time the same launch.  Each line appends
+The JAX script's ``br`` is the rows of one TPU grid step; it maps to
+``br // 16`` rows per CUDA block of threads, which the wrappers check.
+Both slabs' kernels size their own blocks (``probe_cuda.BIT_BLOCK`` and
+``DENSE_BLOCK``), so on the card the ``br`` points of one K time the same
+launch.  Each line appends
 the host's wall time to issue one call (``utils.timing``: a host-bound line
 shows it) and the CUDA block shape.
 
@@ -83,7 +84,7 @@ def main(argv=None) -> int:
                 iters=args.iters, stats=st)
             ps = (sec / r - 0.5e-9) / ks * 1e12
             report(f"bitT K={ks} bf16 br={br_} (~{ps:4.1f}ps/slot)", sec,
-                   st["host_s"], f"cuda block {bm} rows x {bm} thr")
+                   st["host_s"], f"cuda block: {probe_cuda.BIT_BLOCK}")
         a8s = dense01(rows_s, cols_s, ks, r)
         for br_ in (2048, 4096):
             if ks * br_ * (1 + 2) > 24 << 20:

@@ -11,8 +11,8 @@ Measures on the card the primitives the layout composes from:
    ``xlares``: the residual pipeline in plain torch ops (gather, mask
    fold, batched one-hot product, segment sum), the JAX script's XLA-only
    section;
-   ``slabvar``: the row-major uint32 bit slab, bf16 on the tensor cores and
-   f32 on the CUDA cores (``fmtprobe_cuda.bit_slab``);
+   ``slabvar``: the row-major uint32 bit slab with bf16 and f32 features
+   (``fmtprobe_cuda.bit_slab``, a walk over the set bits);
 4. ``segred``: the one-hot segment reduce (``fmtprobe_cuda.seg_reduce``).
 
 The same arguments, sections, order, shapes, seeds and line formats as the
@@ -37,7 +37,7 @@ import sys
 
 DEFAULT_ROWS = 410_624
 SECTIONS = ("stream", "slab", "gather", "xlares", "slabvar", "segred")
-THREADS = 256  # threads per CUDA block of the fmt_probe kernels
+THREADS = 256  # threads per CUDA block of the fmt_probe.cu kernels
 
 
 def main(argv=None) -> int:
@@ -63,7 +63,9 @@ def main(argv=None) -> int:
     from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import (
         pack_slab_bits, pack_slab_bits_t,
     )
-    from gnnadvisor_osdi21_tpu_torch.ops import fmtprobe_cuda, spmm_cuda
+    from gnnadvisor_osdi21_tpu_torch.ops import (
+        fmtprobe_cuda, probe_cuda, spmm_cuda,
+    )
     from gnnadvisor_osdi21_tpu_torch.utils.timing import chained_device_time
 
     dev = resolve_device(args.device)
@@ -113,8 +115,8 @@ def main(argv=None) -> int:
         xh = on_dev(rng.standard_normal((k, d)).astype(np.float32))
         sec, host = timed(lambda x, b: spmm_cuda.slab_matmul(b, x), xh, bits)
         print(f"bit-slab  matmul [{r}x{k}]x[{k}x{d}]: {sec*1e3:7.3f} ms "
-              f"({r*k/sec/1e12:.2f} Tslot/s)  {host}  cuda block: the "
-              f"kernel's own ({THREADS} thr)", flush=True)
+              f"({r*k/sec/1e12:.2f} Tslot/s)  {host}  cuda block: "
+              f"{probe_cuda.BIT_BLOCK}", flush=True)
         del bits
 
         a8 = torch.ones((r, k), dtype=torch.int8, device=dev)
@@ -188,10 +190,8 @@ def main(argv=None) -> int:
             for blk in (512, 1024):
                 sec, host = timed(
                     lambda x_, b: fmtprobe_cuda.bit_slab(b, x_, blk), x, bits)
-                shape = (f"{blk} rows" if variant == "base_bf16"
-                         else f"{THREADS} rows, one a thread")
                 print(f"slab {variant:10s} blk={blk}: {sec*1e3:7.3f} ms  "
-                      f"{host}  cuda block {shape} x {THREADS} thr",
+                      f"{host}  cuda block: {probe_cuda.BIT_BLOCK}",
                       flush=True)
         del bits
 

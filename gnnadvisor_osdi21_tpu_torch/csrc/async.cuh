@@ -1,10 +1,12 @@
 // Asynchronous copies into shared memory on Hopper, as inline PTX:
 // mbarriers and bulk copies (the copy engine, "TMA", without a tensor
 // map) for the row-major slab stream (slab.cu), tensor-map boxes for the
-// dense slab ring (dense_slab.cu), and 16-byte cp.async with commit groups
-// for the residual's row gather (residual.cu).
+// probes' bit slabs (bit_walk.cu) and the dense slab ring (dense_slab.cu),
+// and 16-byte cp.async with commit groups for the residual's row gather
+// (residual.cu).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -95,6 +97,29 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found through the runtime's entry-point lookup
+// (no link to libcuda); null where it is missing.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
 }
 
 }  // namespace gnna

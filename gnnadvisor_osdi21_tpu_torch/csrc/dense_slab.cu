@@ -78,7 +78,6 @@
 //   column); columns past K arrive as zeros and are not read.
 // No atomics; every output element is written once by one thread.
 
-#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -425,29 +424,6 @@ int prepare(const void* x, int K, void* frags, cudaStream_t stream) {
   frag_features_kernel<X, NS, TRANS><<<(n + 255) / 256, 256, 0, stream>>>(
       static_cast<const X*>(x), K, static_cast<uint4*>(frags));
   return static_cast<int>(cudaGetLastError());
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, found through the runtime (no link
-// to libcuda); null if the driver has none.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault,
-                                         &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
 }
 
 template <int SRC, int NS, bool TRANS>

@@ -1,6 +1,7 @@
-// The format probes' four kernels (bench/fmtprobe.py): a streaming
-// read-reduce, a dense int8 slab and a row-major uint32 bit slab contracted
-// with a 16-wide feature table, and a one-hot segment reduce.
+// Three of the format probe's kernels (bench/fmtprobe.py): a streaming
+// read-reduce, a dense int8 slab contracted with a 16-wide feature table,
+// and a one-hot segment reduce.  (Its row-major bit slab is walked over its
+// set bits in bit_walk.cu.)
 //
 // Replaces the TPU kernels of gnnadvisor_osdi21_tpu/bench/fmtprobe.py:
 //   _sum_kernel   (:53, pallas_call at :63): each [block, K] row block of an
@@ -9,21 +10,15 @@
 //                 per block;
 //   _i8_kernel    (:118, pallas_call at :124): out[R, 16] = bf16(A) @ x,
 //                 A int8 [R, K], x bf16 [K, 16];
-//   mk_slab.kern  (:216, pallas_call at :235): out[R, 16] = unpack(bits) @ x
-//                 from the row-major uint32 bit slab [R, K/32], column j in
-//                 word j % W32 at bit j // W32; bf16 x on the tensor cores
-//                 (base_bf16) or f32 x on the CUDA cores (mul_f32dot);
 //   _seg_kernel   (:287, pallas_call at :335): per tile of TILE slots,
 //                 mask the [TILE, 128] values by a lane-group bit mask, fold
 //                 the 128 lanes to 16, and reduce the slots into OB output
 //                 rows by a one-hot product; the tile's part is written into
 //                 (first tile) or added to its output block.
 //
-// What bounds them.  Bytes, for all but the f32 bit slab: each reads its
-// big operand once (the [R, K] array, slab or [m, 128] values) and writes a
-// small output; the bf16 tensor cores' 2·16·K flops per row stay far below
-// the byte time.  The f32 bit slab does the dense 2·16·K flops per row on
-// the CUDA cores (67 TFLOP/s, no TF32), which bound it.
+// What bounds them.  Bytes: each reads its big operand once (the [R, K]
+// array, slab or [m, 128] values) and writes a small output; the bf16
+// tensor cores' 2·16·K flops per row stay far below the byte time.
 //
 // Design.
 // - stream_sum: one CTA per row block, 16-byte loads, four in flight per
@@ -32,20 +27,16 @@
 //   sums in a fixed tree order, and the block total is rounded to f32 once.
 //   So the result does not depend on the launch, and equals the plain
 //   version (an f64 sum rounded once) for integer inputs.
-// - i8_slab and bit_slab (bf16): mma.sync m16n8k16, bf16 operands, f32
-//   accumulate.  The 16 features are the MMA's M and graph rows its N, so a
-//   warp's feature fragment serves the four n8 tiles (32 rows) it owns.
-//   The contraction runs over the slab columns in an order that lets each
-//   lane take its B fragments from one 16-byte load of its graph row: the
-//   lane with t = lane % 4 owns bytes 16t..16t+15 of a 64-column int8 run
-//   (bits 8t..8t+7 of each word of the bit slab), and the feature table is
-//   staged in shared memory in the same order, so the lane's A fragments
-//   are 16-byte shared loads too.  The sum is the same in another order.
-//   A 0/1 (or int8) value is exact in bf16 and its product with a bf16
-//   feature exact in f32.
-// - bit_slab (f32): one thread per graph row, 16 f32 accumulators, fmaf of
-//   each unpacked 0.0/1.0 with the staged f32 feature row (a broadcast
-//   shared read).  No TF32 anywhere.
+// - i8_slab: mma.sync m16n8k16, bf16 operands, f32 accumulate.  The 16
+//   features are the MMA's M and graph rows its N, so a warp's feature
+//   fragment serves the four n8 tiles (32 rows) it owns.  The contraction
+//   runs over the slab columns in an order that lets each lane take its B
+//   fragments from one 16-byte load of its graph row: the lane with t =
+//   lane % 4 owns bytes 16t..16t+15 of a 64-column int8 run, and the
+//   feature table is staged in shared memory in the same order, so the
+//   lane's A fragments are 16-byte shared loads too.  The sum is the same
+//   in another order.  An int8 value is exact in bf16 and its product with
+//   a bf16 feature exact in f32.
 // - seg_reduce: one CTA per output block walks the block's tiles in order
 //   (t2b is sorted), so "set on the first tile, then add" needs no atomics
 //   and each output element is written once.  Per tile the warps fold the
@@ -97,11 +88,6 @@ __device__ __forceinline__ uint32_t i8x2_bf16(uint32_t w) {
   const float lo = static_cast<float>(static_cast<int8_t>(w & 0xFF));
   const float hi = static_cast<float>(static_cast<int8_t>((w >> 8) & 0xFF));
   return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xFFFF0000u);
-}
-
-// Bits 0 and 1 of ``v`` as two packed bf16 0/1 values.
-__device__ __forceinline__ uint32_t bits2_bf16(uint32_t v) {
-  return ((v & 1u) * kOne) | (((v >> 1) & 1u) * (kOne << 16));
 }
 
 // ---------------------------------------------------------------------------
@@ -173,7 +159,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// i8_slab and bit_slab (bf16): rows as the MMA's N
+// i8_slab: rows as the MMA's N
 // ---------------------------------------------------------------------------
 
 // Store one warp's four n8 tiles: acc[n] holds features (g, g + 8) x rows
@@ -259,127 +245,6 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     store_rows(acc, r_w, R, g, t, out);
-  }
-}
-
-// out[R, 16] = unpack(bits) @ x, bits uint32 [R, W32] (W32 a multiple of
-// 4), x bf16 [32·W32, 16].  Word w of a row holds columns β·W32 + w at bit
-// β; lane t's MMA step s takes bits 8t + 4s + {0, 1} (k 2t, 2t + 1) and
-// 8t + 4s + {2, 3} (k 2t + 8, 2t + 9).  The feature chunk is staged as
-// [word][feature][β], so a lane's A fragments for one word are one 16-byte
-// read per feature half.
-constexpr int kWordChunk = kChunk / 32;  // words per staged chunk
-
-__global__ void __launch_bounds__(kThreads)
-    bit_slab_kernel(const uint32_t* __restrict__ bits, int R, int W32,
-                    int block_rows, const uint16_t* __restrict__ x,
-                    float* __restrict__ out) {
-  __shared__ __align__(16) uint16_t sxp[kWordChunk * kFeat * 32];
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int warp = threadIdx.x >> 5;
-  const int row_end = min(R, (blockIdx.x + 1) * block_rows);
-  for (int p0 = blockIdx.x * block_rows; p0 < row_end; p0 += kStrip) {
-    const int r_w = p0 + 32 * warp;
-    float acc[4][4] = {};
-    for (int wc = 0; wc < W32; wc += kWordChunk) {
-      const int wn = min(kWordChunk, W32 - wc);
-      __syncthreads();
-      // stage x rows β·W32 + wc + w for w < wn, β < 32: one 8-feature half
-      // per item
-      for (int i = threadIdx.x; i < wn * 64; i += kThreads) {
-        const int w = i / 64, beta = (i / 2) % 32, f0 = 8 * (i & 1);
-        const uint4 q = __ldg(reinterpret_cast<const uint4*>(
-            x + (static_cast<size_t>(beta) * W32 + wc + w) * kFeat + f0));
-        const uint32_t v[4] = {q.x, q.y, q.z, q.w};
-        uint16_t* dst = sxp + (w * kFeat + f0) * 32 + beta;
-#pragma unroll
-        for (int f = 0; f < 8; f += 2) {
-          dst[f * 32] = static_cast<uint16_t>(v[f / 2] & 0xFFFF);
-          dst[(f + 1) * 32] = static_cast<uint16_t>(v[f / 2] >> 16);
-        }
-      }
-      __syncthreads();
-      for (int w4 = 0; w4 < wn; w4 += 4) {
-        uint4 bq[4];
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const int r = r_w + 8 * n + g;
-          bq[n] = r < R ? __ldg(reinterpret_cast<const uint4*>(
-                              bits + static_cast<size_t>(r) * W32 + wc + w4))
-                        : make_uint4(0, 0, 0, 0);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint16_t* xw = sxp + (w4 + j) * kFeat * 32 + 8 * t;
-          const uint4 lo = *reinterpret_cast<const uint4*>(xw + g * 32);
-          const uint4 hi = *reinterpret_cast<const uint4*>(xw + (g + 8) * 32);
-#pragma unroll
-          for (int s = 0; s < 2; ++s) {
-            const uint32_t af[4] = {s ? lo.z : lo.x, s ? hi.z : hi.x,
-                                    s ? lo.w : lo.y, s ? hi.w : hi.y};
-#pragma unroll
-            for (int n = 0; n < 4; ++n) {
-              const uint32_t word = j == 0 ? bq[n].x
-                                    : j == 1 ? bq[n].y
-                                    : j == 2 ? bq[n].z
-                                             : bq[n].w;
-              const uint32_t nib = word >> (8 * t + 4 * s);
-              mma_bf16(acc[n], af, bits2_bf16(nib), bits2_bf16(nib >> 2));
-            }
-          }
-        }
-      }
-    }
-    store_rows(acc, r_w, R, g, t, out);
-  }
-}
-
-// out[R, 16] = unpack(bits) @ x in f32 on the CUDA cores: one thread per
-// graph row; the chunk's feature rows staged as [word][β][16] f32.
-constexpr int kF32Words = 8;  // words per staged chunk (16 KB)
-
-__global__ void __launch_bounds__(kThreads)
-    bit_slab_f32_kernel(const uint32_t* __restrict__ bits, int R, int W32,
-                        const float* __restrict__ x, float* __restrict__ out) {
-  __shared__ __align__(16) float sx[kF32Words * 32 * kFeat];
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  float acc[kFeat] = {};
-  for (int wc = 0; wc < W32; wc += kF32Words) {
-    const int wn = min(kF32Words, W32 - wc);
-    __syncthreads();
-    for (int i = threadIdx.x; i < wn * 32 * 4; i += kThreads) {
-      const int w = i / 128, beta = (i / 4) % 32, q = i % 4;
-      reinterpret_cast<float4*>(sx + (w * 32 + beta) * kFeat)[q] =
-          __ldg(reinterpret_cast<const float4*>(
-                    x + (static_cast<size_t>(beta) * W32 + wc + w) * kFeat) +
-                q);
-    }
-    __syncthreads();
-    if (r < R) {
-      for (int w = 0; w < wn; ++w) {
-        const uint32_t word = __ldg(bits + static_cast<size_t>(r) * W32 + wc + w);
-        const float4* xr = reinterpret_cast<const float4*>(sx + w * 32 * kFeat);
-#pragma unroll 4
-        for (int beta = 0; beta < 32; ++beta) {
-          const float av = static_cast<float>((word >> beta) & 1u);
-#pragma unroll
-          for (int q = 0; q < kFeat / 4; ++q) {
-            const float4 v = xr[beta * (kFeat / 4) + q];
-            acc[4 * q + 0] = fmaf(av, v.x, acc[4 * q + 0]);
-            acc[4 * q + 1] = fmaf(av, v.y, acc[4 * q + 1]);
-            acc[4 * q + 2] = fmaf(av, v.z, acc[4 * q + 2]);
-            acc[4 * q + 3] = fmaf(av, v.w, acc[4 * q + 3]);
-          }
-        }
-      }
-    }
-  }
-  if (r < R) {
-    float4* o = reinterpret_cast<float4*>(out + static_cast<size_t>(r) * kFeat);
-#pragma unroll
-    for (int q = 0; q < kFeat / 4; ++q)
-      o[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
-                         acc[4 * q + 3]);
   }
 }
 
@@ -571,27 +436,6 @@ int gnna_i8_slab(const void* a, int R, int K, const void* x, int block_rows,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(a), R, K, block_rows,
       static_cast<const uint16_t*>(x), static_cast<float*>(out));
-  return err(cudaGetLastError());
-}
-
-// bits uint32 [R, W32] (W32 a multiple of 4), x [32·W32, 16] bf16 (or f32
-// when x_f32, on the CUDA cores) -> out f32 [R, 16]; block_rows a multiple
-// of 256 (the bf16 variant's rows per CTA).
-int gnna_bit_slab(const void* bits, int R, int W32, const void* x, int x_f32,
-                  int block_rows, void* out, void* stream) {
-  using namespace gnna::fmt;
-  if (R <= 0 || W32 <= 0 || W32 % 4 || block_rows <= 0 ||
-      block_rows % kStrip)
-    return err(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_f32)
-    bit_slab_f32_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-        static_cast<const uint32_t*>(bits), R, W32,
-        static_cast<const float*>(x), static_cast<float*>(out));
-  else
-    bit_slab_kernel<<<(R + block_rows - 1) / block_rows, kThreads, 0, st>>>(
-        static_cast<const uint32_t*>(bits), R, W32, block_rows,
-        static_cast<const uint16_t*>(x), static_cast<float*>(out));
   return err(cudaGetLastError());
 }
 

@@ -49,9 +49,11 @@ SIGNATURES = {
     "gnna_residual_combine": (
         _P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P,
     ),
-    # the probes' bit slab (csrc/probe_slab.cu):
-    # bits, w32, R, x_t, block_rows, out, stream
-    "gnna_bit_slab_t": (_P, _I, _I, _P, _I, _P, _P),
+    # the probes' bit slabs, walked over their set bits (csrc/bit_walk.cu):
+    # bits, w32, R, x_t, table (scratch), block_rows, out, stream
+    "gnna_bit_slab_t": (_P, _I, _I, _P, _P, _I, _P, _P),
+    # bits, R, w32, x, x_f32, block_rows, out, stream
+    "gnna_bit_slab": (_P, _I, _I, _P, _I, _I, _P, _P),
     # the probes' dense slabs (csrc/dense_slab.cu):
     # a, K, R, x_t, frags, out, stream
     "gnna_i8_slab_t": (_P, _I, _I, _P, _P, _P, _P),
@@ -62,8 +64,6 @@ SIGNATURES = {
     "gnna_stream_sum": (_P, _I, _I, _L, _P, _P, _P),
     # a, R, K, x, block_rows, out, stream
     "gnna_i8_slab": (_P, _I, _I, _P, _I, _P, _P),
-    # bits, R, w32, x, x_f32, block_rows, out, stream
-    "gnna_bit_slab": (_P, _I, _I, _P, _I, _I, _P, _P),
     # vals, masks, segs, t2b, first, T, tile, ob, n_blocks, s, out, stream
     "gnna_seg_reduce": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
 }

@@ -14,8 +14,11 @@ TPU kernels replaced (``gnnadvisor_osdi21_tpu/bench/fmtprobe.py``), all in
 - ``mk_slab.kern`` (:216, call :235): ``out[R, D] = unpack(bits) @ x`` from
   the row-major uint32 bit slab ``[R, K/32]``, column j in word
   ``j % (K/32)`` at bit ``j // (K/32)`` (``graphs.hybrid.pack_slab_bits``);
-  bf16 x is ``base_bf16`` (tensor cores), f32 x ``mul_f32dot`` (CUDA cores,
-  no TF32) (``bit_slab``);
+  bf16 x is ``base_bf16``, f32 x ``mul_f32dot`` (``bit_slab``).  It runs in
+  ``csrc/bit_walk.cu``, a walk over the set bits: the slab streams in as
+  boxes of a 2-D tensor map, and the walk adds the feature rows of the set
+  bits in f32 (no TF32), so the two variants differ only in the table's
+  dtype.  Its launches count as ``bit_slab`` (bf16) and ``bit_slab_f32``;
 - ``_seg_kernel`` (:287, call :335, ``segred``): the one-hot segment reduce
   (``seg_reduce``).
 
@@ -24,7 +27,8 @@ contiguity, runs the plain version for CPU tensors only, and for CUDA
 tensors launches its kernel or raises; ``launches`` counts the kernel
 launches.  The slab kernels and the segment reduce compute 16 features
 (the probe's ``--dim``); ``block_rows`` is the graph rows one CUDA block of
-threads owns (a multiple of 256: the TPU grid step's 512 or 1024 rows).
+threads owns (a multiple of 256: the TPU grid step's 512 or 1024 rows);
+``bit_slab`` checks it and sizes its own tiles.
 
 Where the TPU kernel leaves output unwritten, the port defines it: the
 slab kernels write every row (the TPU grid covers ``R // block`` blocks),
@@ -40,8 +44,10 @@ from gnnadvisor_osdi21_tpu_torch.ops.probe_cuda import FEATURES, _check_2d
 from gnnadvisor_osdi21_tpu_torch.ops.spmm_cuda import _on_cpu, _stream
 
 KERNELS = ("stream_sum", "i8_slab", "bit_slab", "seg_reduce")
-# kernel name -> launches since the last reset_launches()
-launches = dict.fromkeys(KERNELS, 0)
+# kernel name -> launches since the last reset_launches(); bit_slab counts
+# its bf16 variant, and its f32 variant (mul_f32dot) counts apart
+BIT_SLAB_F32 = "bit_slab_f32"
+launches = dict.fromkeys(KERNELS + (BIT_SLAB_F32,), 0)
 
 LANES = 128  # the segment reduce's value lanes (one TPU vreg row)
 STRIP = 256  # graph rows of one CUDA pass: block_rows must be a multiple
@@ -221,8 +227,9 @@ def _i8_slab_cuda(a, x16, block_rows: int) -> torch.Tensor:
 def bit_slab(bits: torch.Tensor, x: torch.Tensor,
              block_rows: int = 512) -> torch.Tensor:
     """out[R, D] f32 = unpack(bits) @ x; ``bits`` uint32 [R, K/32] (the
-    legacy row-major order), ``x`` [K, D]: bf16 (``base_bf16``, tensor
-    cores) or f32 (``mul_f32dot``, CUDA cores)."""
+    legacy row-major order), ``x`` [K, D]: bf16 (``base_bf16``) or f32
+    (``mul_f32dot``).  ``block_rows`` is checked, and does not change the
+    CUDA launch."""
     _check_2d("bits", bits, (torch.uint32,))
     r, w32 = bits.shape
     _check_table(x, 32 * w32)
@@ -246,7 +253,7 @@ def _bit_slab_cuda(bits, x, block_rows: int) -> torch.Tensor:
             _stream(x.device),
         )
     _build.check("bit_slab", rc)
-    launches["bit_slab"] += 1
+    launches[BIT_SLAB_F32 if x.dtype == torch.float32 else "bit_slab"] += 1
     return out
 
 

@@ -4,10 +4,9 @@ slabs), their plain versions and their launch counts.
 TPU kernels replaced (``gnnadvisor_osdi21_tpu/bench/``):
 
 - ``_bit_t_kernel`` (fixprobe.py:63, wrapper ``bit_slab_t``,
-  ``csrc/probe_slab.cu``): ``out[16, R] = x_t @ unpack(bits)`` from the
-  legacy uint32 transposed bit slab ``[K/32, R]``, column j in word
-  ``j % (K/32)`` at bit ``j // (K/32)`` (the transpose of
-  ``graphs.hybrid.pack_slab_bits``);
+  ``csrc/bit_walk.cu``): ``out[16, R] = x_t @ unpack(bits)`` from the legacy
+  uint32 transposed bit slab ``[K/32, R]``, column j in word ``j % (K/32)``
+  at bit ``j // (K/32)`` (the transpose of ``graphs.hybrid.pack_slab_bits``);
 - ``_i8_t_kernel`` (fixprobe.py:94, ``i8_slab_t``, ``csrc/dense_slab.cu``):
   ``out[16, R] = x_t @ A`` with a dense int8 ``A [K, R]`` cast to x's dtype;
 - ``_dense_kernel`` (stepprobe.py:69, ``dense_slab``,
@@ -20,20 +19,26 @@ tensors launches its kernel or raises; ``launches`` counts the kernel
 launches.  The kernels compute 16 features (one MMA tile): the probes'
 width.
 
-``bit_slab_t``'s ``block_rows`` is the graph rows one CUDA block of
-threads owns (32 to 512, a multiple of 32); the probe scripts map the
-TPU's grid-step rows ``br`` to ``br // 16``.  ``i8_slab_t`` and
-``dense_slab`` run on a streamed slab ring (``csrc/dense_slab.cu``):
-persistent blocks of one producer warp, which keeps a ring of slab
-columns full with boxes of a 2-D tensor map, and four consumer warps of
-64 graph rows, which widen int8 to bf16 with byte permutes and one bf16x2
-FMA (no I2F) and run ``mma.sync`` m16n8k16.  A small pass first writes the
-features in the MMA's fragment order into a scratch buffer; f32 features
-are split there exactly into three bf16 terms (``split3``), so the
-int8/f32 pair runs on the tensor cores too, with no TF32.  These
-kernels size their own tiles: they take ``block_rows`` and check it as
-``bit_slab_t`` does, so the scripts keep the JAX sweeps, and every value
-launches the same kernel (``DENSE_BLOCK`` names it on the scripts' lines).
+``bit_slab_t`` walks the set bits (``csrc/bit_walk.cu``): persistent
+blocks of one producer warp, which streams the slab's words through a ring
+of shared-memory stages as boxes of a 2-D tensor map, and eight consumer
+warps of 16 graph rows, two lanes a row, which list the columns of their
+row's set bits and add those feature rows in f32 registers (``x_t`` is
+first copied row-major into a scratch ``[K, 16]`` table, the rows the walk
+reads).  ``i8_slab_t`` and ``dense_slab`` run on a streamed slab ring
+(``csrc/dense_slab.cu``): persistent blocks of one producer warp, which
+keeps a ring of slab columns full with boxes of a 2-D tensor map, and four
+consumer warps of 64 graph rows, which widen int8 to bf16 with byte
+permutes and one bf16x2 FMA (no I2F) and run ``mma.sync`` m16n8k16.  A
+small pass first writes the features in the MMA's fragment order into a
+scratch buffer; f32 features are split there exactly into three bf16
+terms (``split3``), so the int8/f32 pair runs on the tensor cores too,
+with no TF32.  All three
+kernels size their own tiles: they take ``block_rows`` (the graph rows of
+one CUDA block of threads, 32 to 512, a multiple of 32; the probe scripts
+map the TPU's grid-step rows ``br`` to ``br // 16``) and check it, so the
+scripts keep the JAX sweeps, and every value launches the same kernel
+(``BIT_BLOCK`` and ``DENSE_BLOCK`` name it on the scripts' lines).
 """
 
 from __future__ import annotations
@@ -50,7 +55,8 @@ launches = dict.fromkeys(KERNELS, 0)
 FEATURES = 16  # the kernels' feature width
 K_STEP = 16  # the MMA's k16 step: K must be a multiple
 FRAG_BYTES = 512  # one k16 step's features in fragment order, per term
-# the CUDA block of i8_slab_t and dense_slab, whatever block_rows says
+# the CUDA blocks of the kernels, whatever block_rows says
+BIT_BLOCK = "the walk's own (persistent, 288 thr, 128-row tiles)"
 DENSE_BLOCK = "the kernel's own (persistent, 160 thr, 256-row tiles)"
 # the (slab, features) dtypes of dense_slab's path (stepprobe.py:104-105)
 DENSE_DTYPES = (
@@ -138,7 +144,8 @@ def _frags(k: int, terms: int, device) -> torch.Tensor:
 def bit_slab_t(bits_t: torch.Tensor, x_t: torch.Tensor,
                block_rows: int = 256) -> torch.Tensor:
     """out[D, R] f32 = x_t @ unpack(bits_t); ``bits_t`` uint32 [K/32, R],
-    ``x_t`` bf16 [D, K]."""
+    ``x_t`` bf16 [D, K].  ``block_rows`` is checked, and does not change
+    the CUDA launch."""
     _check_2d("bits_t", bits_t, (torch.uint32,))
     _check_2d("x_t", x_t, (torch.bfloat16,))
     k, r = bits_t.shape[0] * 32, bits_t.shape[1]
@@ -153,10 +160,13 @@ def bit_slab_t(bits_t: torch.Tensor, x_t: torch.Tensor,
 def _bit_slab_t_cuda(bits_t, x_t, block_rows: int) -> torch.Tensor:
     r = bits_t.shape[1]
     out = torch.empty((FEATURES, r), dtype=torch.float32, device=x_t.device)
+    # scratch for x_t's row-major copy (at most 128 KB at the probes' K)
+    table = torch.empty((x_t.shape[1], FEATURES), dtype=torch.bfloat16,
+                        device=x_t.device)
     with torch.cuda.device(x_t.device):
         rc = _build.library().gnna_bit_slab_t(
             bits_t.data_ptr(), bits_t.shape[0], r, x_t.data_ptr(),
-            block_rows, out.data_ptr(), _stream(x_t.device),
+            table.data_ptr(), block_rows, out.data_ptr(), _stream(x_t.device),
         )
     _build.check("bit_slab_t", rc)
     launches["bit_slab_t"] += 1

@@ -291,28 +291,72 @@ def test_i8_slab_matches_jax(block, slab, feat):
 # --- B.9 bit_slab ------------------------------------------------------------------
 
 
+def _hard_words(slab: str, r: int, w32: int, rng) -> np.ndarray:
+    """A row-major uint32 bit slab [R, W32] that a walk over set bits could
+    get wrong: every bit set, bit 31 in every word, or random bits with
+    every third row and rows 256-767 (whole 128-row tiles) empty."""
+    if slab == "every bit set":
+        return np.full((r, w32), 0xFFFFFFFF, np.uint32)
+    if slab == "bit 31 in every word":
+        return np.full((r, w32), 1 << 31, np.uint32)
+    words = rng.integers(0, 1 << 32, (r, w32), dtype=np.uint64).astype(
+        np.uint32) & rng.integers(0, 1 << 32, (r, w32), dtype=np.uint64
+                                  ).astype(np.uint32)
+    words[::3] = 0
+    words[256:768] = 0
+    return words
+
+
+def _dense_of(words: np.ndarray) -> np.ndarray:
+    """The 0/1 [R, 32·W32] matrix of a row-major slab (numpy's own
+    unpacking, independent of the port's)."""
+    r, w32 = words.shape
+    j = np.arange(32 * w32)
+    return ((words[:, j % w32] >> (j // w32).astype(np.uint32)) & 1).astype(
+        np.float32)
+
+
 # W32 = 2, 4 and 8 put 2 to 8 words in a row: the order column j -> word
-# j % W32, bit j // W32 is what the test pins
+# j % W32, bit j // W32 is what the test pins.  The other slabs are the ones
+# a walk over set bits could get wrong (at W32 = 4, a stage of the card's
+# walk only partly filled); their features are dyadic, so that both sides
+# are exact whatever the order of the sums.
 @pytest.mark.parametrize("variant", ("base_bf16", "mul_f32dot"))
-@pytest.mark.parametrize("w32", (2, 4, 8))
-def test_bit_slab_matches_jax(w32, variant):
-    rng = np.random.default_rng(w32 + len(variant))
+@pytest.mark.parametrize("w32, slab", [
+    pytest.param(2, "random", id="2"), pytest.param(4, "random", id="4"),
+    pytest.param(8, "random", id="8"),
+    *(pytest.param(w, s, id=f"{w}-{s}")
+      for s in ("every bit set", "bit 31 in every word", "empty rows")
+      for w in (4, 8)),
+])
+def test_bit_slab_matches_jax(w32, slab, variant):
+    rng = np.random.default_rng(
+        w32 + len(variant) + (0 if slab == "random" else len(slab)))
     r, d, k = 1024, 16, 32 * w32
-    rows, cols = rng.integers(0, r, 6 * r), rng.integers(0, k, 6 * r)
-    bits = hybrid.pack_slab_bits(rows, cols, r, k)
-    x = rng.standard_normal((k, d)).astype(np.float32)
+    if slab == "random":
+        rows, cols = rng.integers(0, r, 6 * r), rng.integers(0, k, 6 * r)
+        bits = hybrid.pack_slab_bits(rows, cols, r, k)
+        x = rng.standard_normal((k, d)).astype(np.float32)
+    else:
+        bits = _hard_words(slab, r, w32, rng)
+        x = (rng.integers(-8, 9, (k, d)) / 4).astype(np.float32)
     want = np.asarray(make_mk_slab(r, k, d)(variant, 512)(
         jnp.asarray(bits), jnp.asarray(x)))
     xt = torch.from_numpy(x)
     got = fmtprobe_cuda.bit_slab(
         torch.from_numpy(bits),
         xt.to(torch.bfloat16) if variant == "base_bf16" else xt).numpy()
-    np.testing.assert_allclose(got, want, **TOL)
     # the dense product over the same edges, as a third opinion
-    dense = np.zeros((r, k), np.float32)
-    dense[rows, cols] = 1
     xs = xt.to(torch.bfloat16).float().numpy() if variant == "base_bf16" else x
-    np.testing.assert_allclose(got, dense @ xs, **TOL)
+    if slab == "random":
+        np.testing.assert_allclose(got, want, **TOL)
+        dense = np.zeros((r, k), np.float32)
+        dense[rows, cols] = 1
+        np.testing.assert_allclose(got, dense @ xs, **TOL)
+    else:
+        dense = _dense_of(bits) @ xs
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, dense)
 
 
 def test_unpack_rows32_is_the_legacy_order():

@@ -155,25 +155,60 @@ def _both(x: np.ndarray, dtype: str):
     return j, t
 
 
+def _hard_words_t(slab: str, r: int, w32: int, rng) -> np.ndarray:
+    """A bit-major uint32 bit slab [W32, R] that a walk over set bits could
+    get wrong: every bit set, bit 31 in every word, or random bits with
+    every third graph row and rows 256-767 (whole 128-row tiles) empty."""
+    if slab == "every bit set":
+        return np.full((w32, r), 0xFFFFFFFF, np.uint32)
+    if slab == "bit 31 in every word":
+        return np.full((w32, r), 1 << 31, np.uint32)
+    words = rng.integers(0, 1 << 32, (w32, r), dtype=np.uint64).astype(
+        np.uint32) & rng.integers(0, 1 << 32, (w32, r), dtype=np.uint64
+                                  ).astype(np.uint32)
+    words[:, ::3] = 0
+    words[:, 256:768] = 0
+    return words
+
+
 # K = 64 and up puts more than one word in a row (W32 > 1): the bit order
-# column j -> word j % W32, bit j // W32 is what the test pins
-@pytest.mark.parametrize("k", (64, 128, 256))
-def test_bit_slab_t_matches_jax(k):
+# column j -> word j % W32, bit j // W32 is what the test pins.  The other
+# slabs are the ones a walk over set bits could get wrong (at K = 128, W32 =
+# 4: a stage of the card's walk only partly filled); their features are
+# dyadic, so that both sides are exact whatever the order of the sums.
+@pytest.mark.parametrize("k, slab", [
+    pytest.param(64, "random", id="64"), pytest.param(128, "random", id="128"),
+    pytest.param(256, "random", id="256"),
+    *(pytest.param(k, s, id=f"{k}-{s}")
+      for s in ("every bit set", "bit 31 in every word", "empty rows")
+      for k in (128, 256)),
+])
+def test_bit_slab_t_matches_jax(k, slab):
     r = 1024
-    rows, cols = _edges(k, r, k)
-    bits = np.ascontiguousarray(hybrid.pack_slab_bits(rows, cols, r, k).T)
-    xj, xt = _both(
-        np.random.default_rng(k + 1).standard_normal((16, k)).astype(np.float32),
-        "bfloat16",
-    )
+    rng = np.random.default_rng(k + 1)
+    if slab == "random":
+        rows, cols = _edges(k, r, k)
+        bits = np.ascontiguousarray(hybrid.pack_slab_bits(rows, cols, r, k).T)
+        x = rng.standard_normal((16, k)).astype(np.float32)
+    else:
+        bits = _hard_words_t(slab, r, k // 32, rng)
+        x = (rng.integers(-8, 9, (16, k)) / 4).astype(np.float32)
+    xj, xt = _both(x, "bfloat16")
     want = np.asarray(bit_slab_t(jnp.asarray(bits), xj, br_=512))
-    got = probe_cuda.bit_slab_t(torch.from_numpy(bits), xt)
-    np.testing.assert_allclose(got.numpy(), want, **TOL)
-    # the dense product over the same edges, as a third opinion
-    a = _dense01(rows, cols, k, r).astype(np.float32)
-    np.testing.assert_allclose(
-        want, xt.float().numpy() @ a, **TOL
-    )
+    got = probe_cuda.bit_slab_t(torch.from_numpy(bits), xt).numpy()
+    if slab == "random":
+        np.testing.assert_allclose(got, want, **TOL)
+        # the dense product over the same edges, as a third opinion
+        a = _dense01(rows, cols, k, r).astype(np.float32)
+        np.testing.assert_allclose(want, xt.float().numpy() @ a, **TOL)
+    else:
+        # the dense product over the same bits (numpy's own unpacking,
+        # independent of the port's), as a third opinion
+        j = np.arange(k)
+        a = ((bits[j % (k // 32)] >> (j // (k // 32)).astype(np.uint32)[:, None])
+             & 1).astype(np.float32)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, xt.float().numpy() @ a)
 
 
 @pytest.mark.parametrize("k", (64, 128, 256))
@@ -422,6 +457,26 @@ def test_cuda_launches_check_their_shapes(case, monkeypatch):
         x = _cuda_typed(torch.zeros((64, 16), dtype=torch.float32))
     with pytest.raises(ValueError):
         probe_cuda.dense_slab(a, x, **kwargs)
+
+
+@pytest.mark.parametrize("case", ("rows", "block", "width"))
+def test_bit_slab_t_launch_checks_its_shapes(case, monkeypatch):
+    """What the set-bit walk cannot take raises before any launch: R not a
+    multiple of 8 (the slab's tensor-map rows), a block_rows outside the
+    scripts' sweep, features other than 16 wide."""
+    monkeypatch.setattr(probe_cuda, "_bit_slab_t_cuda",
+                        lambda *a: pytest.fail("launched"))
+    r, d, kwargs = 512, 16, {}
+    if case == "rows":
+        r = 516
+    elif case == "block":
+        kwargs["block_rows"] = 48
+    else:
+        d = 8
+    bits = _cuda_typed(torch.zeros((2, r), dtype=torch.uint32))
+    x_t = _cuda_typed(torch.zeros((d, 64), dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        probe_cuda.bit_slab_t(bits, x_t, **kwargs)
 
 
 # --- the probe scripts, rehearsed on the CPU at a small R ---------------------
