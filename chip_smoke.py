@@ -64,7 +64,14 @@ PyTorch version on the card:
   at a reduced and at fmtprobe's full shape, with their time, bound,
   plain time and library time; the set-bit walk (``bit_slab``, both
   variants) also on the slabs of phase 7 and with equal results for both
-  blocks.
+  blocks; the dense int8 slab (``i8_slab``) also on a slab of every int8
+  value, exactly on dyadic features, and with equal results for both
+  blocks at the full shape; the segment reduce also with three tiles a
+  block and a restart (at both shapes) and with its ids shuffled within
+  each tile (at the reduced shape), and, as information, one
+  ``torch.sparse.mm`` over the unfolded values;
+- phase 10b: the segment reduce and the D = 16 residual kernels chained,
+  per edge.
 
 The layouts of phases 2-6 are built with the probe off, so that they are
 the cost model's.  Every check raises on failure, so the exit code is
@@ -77,6 +84,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -104,6 +112,7 @@ from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import (
     build_layer_tensors, hybrid_aggregate,
 )
 from gnnadvisor_osdi21_tpu_torch.tuner.decider import InputProperty
+from gnnadvisor_osdi21_tpu_torch.utils.timing import chained_device_time
 
 # H100 SXM data sheet (dense, no sparsity): memory rate and f32 rate
 # outside the tensor cores.
@@ -154,7 +163,7 @@ SOURCES = {
     "i8_slab_t": "gnnadvisor_osdi21_tpu_torch/csrc/dense_slab.cu",
     "dense_slab": "gnnadvisor_osdi21_tpu_torch/csrc/dense_slab.cu",
     "stream_sum": "gnnadvisor_osdi21_tpu_torch/csrc/fmt_probe.cu",
-    "i8_slab": "gnnadvisor_osdi21_tpu_torch/csrc/fmt_probe.cu",
+    "i8_slab": "gnnadvisor_osdi21_tpu_torch/csrc/dense_slab.cu",
     "bit_slab": "gnnadvisor_osdi21_tpu_torch/csrc/bit_walk.cu",
     fmtprobe_cuda.BIT_SLAB_F32: "gnnadvisor_osdi21_tpu_torch/csrc/bit_walk.cu",
     "seg_reduce": "gnnadvisor_osdi21_tpu_torch/csrc/fmt_probe.cu",
@@ -1489,12 +1498,14 @@ def phase9(layouts) -> None:
 
 
 def fmt_seg_inputs(r: int, tile: int, ob: int, rng, gen, several: bool,
-                   ones: bool):
+                   ones: bool, shuffled: bool = False):
     """Segment-reduce inputs at R rows: fmtprobe's (its 393,216 slots
     spread evenly over the blocks, tile-aligned) or, with ``several``,
     three tiles per block, a restart (``first``) inside block 1 and the
-    last block without a tile.  Values unit normal, or ones as fmtprobe's.
-    Returns the kernel's arguments before ``s`` and ``n_blocks``."""
+    last block without a tile.  Values unit normal, or ones as fmtprobe's;
+    segment ids sorted within each tile, or with ``shuffled`` in a random
+    order within it.  Returns the kernel's arguments before ``s`` and
+    ``n_blocks``."""
     n_blocks = r // ob
     if several:
         t2b = np.repeat(np.arange(n_blocks - 1, dtype=np.int32), 3)
@@ -1507,12 +1518,95 @@ def fmt_seg_inputs(r: int, tile: int, ob: int, rng, gen, several: bool,
         first[4] = 1
     m = len(t2b) * tile
     segs = np.sort(rng.integers(0, ob, (len(t2b), tile))).astype(np.int32)
+    if shuffled:
+        segs = rng.permuted(segs, axis=1)
     masks = rng.integers(1, 255, (m, 1)).astype(np.uint32)
     vals = (torch.ones((m, 128), device=DEVICE) if ones else
             torch.randn((m, 128), generator=gen, device=DEVICE))
     dev = [torch.from_numpy(a).to(DEVICE)
            for a in (masks, segs.reshape(-1, 1), t2b, first)]
     return (vals, *dev), n_blocks
+
+
+def seg_library(rec: Record, args, s, tile: int, ob: int,
+                n_blocks: int) -> None:
+    """Time the segment reduce at fmtprobe's inputs beside its yardstick,
+    ``torch.sparse.mm`` over the folded v (a CSR of (output row, slot));
+    and log, as information only, one ``torch.sparse.mm`` that computes
+    the whole function from the unfolded values: a CSR of (output row,
+    slot·8 + group), one entry per set mask bit, times ``vals.view(8m,
+    16)`` (no bf16 roundings, no ``s``)."""
+    vals, masks, segs, t2b, first = args
+    m = vals.shape[0]
+    v = fmtprobe_cuda.seg_fold(vals, masks)
+    t2b_h = t2b.cpu().numpy()
+    seg_h = segs.cpu().numpy().ravel()
+    slot = np.arange(m)
+    out_row = t2b_h[slot // tile].astype(np.int64) * ob + seg_h
+    a_csr = csr(out_row, slot, (n_blocks * ob, m))
+    nbytes = (m * 128 * 4 + m * 8 + len(t2b_h) * 8
+              + n_blocks * ob * 16 * 4)
+    timed(rec, f"TILE={tile} OB={ob} m={m}",
+          lambda: fmtprobe_cuda.seg_reduce(*args, s, tile, ob, n_blocks),
+          lambda: fmtprobe_cuda.seg_reduce_plain(*args, s, tile, ob,
+                                                 n_blocks),
+          lambda: torch.sparse.mm(a_csr, v), nbytes, 2 * ob * 16 * m,
+          record=(tile, ob) == (512, 512),
+          lib_name="torch.sparse.mm (f32 CSR, folded v)",
+          rate=BF16_TC_OPS_PER_S)
+    mask_h = masks.view(torch.int32).cpu().numpy().ravel()
+    hot = [np.nonzero((mask_h >> c) & 1)[0] for c in range(8)]
+    a_all = csr(np.concatenate([out_row[sl] for sl in hot]),
+                np.concatenate([sl * 8 + c for c, sl in enumerate(hot)]),
+                (n_blocks * ob, 8 * m))
+    v8 = vals.view(8 * m, 16)
+    log(f"  seg_reduce TILE={tile} OB={ob} m={m}: torch.sparse.mm over the "
+        f"unfolded values (f32 CSR, {sum(map(len, hot))} set mask groups) "
+        f"{time_ms(lambda: torch.sparse.mm(a_all, v8)):.4f} ms "
+        "(information only)")
+
+
+def seg_vs_residual(layouts, rm) -> None:
+    """The segment reduce against the residual kernels at D = 16, each
+    chained on the current stream in this process (PERF.md §7 q.6), per
+    edge: a set mask group of a slot for the segment reduce (fmtprobe's
+    inputs), a residual nnz for the residual kernels (the amazon0505-scale
+    auto layout, gathering from x)."""
+    (_, head, hts), _, _ = layouts
+    hg = head.hybrid_graph
+    ht, hr = hts[0], rm["gin"][0]
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    rng = np.random.default_rng(12)
+    log("phase 10b: seg_reduce against the D=16 residual kernels, chained, "
+        "per edge")
+    nnz = int(np.unpackbits(hg.res_mask.view(np.uint8)).sum())
+    x_t = features(16, hg.num_rows, torch.bfloat16, gen)
+    xv, x = as_table(x_t), x_t.t().contiguous()
+    runs = [
+        ("residual_combine D=16 bf16, from x", nnz,
+         lambda x_, a: spmm_cuda.residual_combine(x_, *a), x,
+         (hr.res_src, hr.res_mask, hr.res_t2b, hr.res_block_ptr,
+          hg.num_rows, hg.res_ob)),
+        ("residual_combine_t D=16 bf16, from x", nnz,
+         lambda x_, a: spmm_cuda.residual_combine_t(x_, *a), xv,
+         (ht.res_src, ht.res_mask_s, ht.res_t2b, ht.res_block_ptr,
+          hg.num_rows, hg.res_ob)),
+    ]
+    s = torch.zeros((8, 128), device=DEVICE)
+    for tile, ob in SEG_PAIRS:
+        args, n_blocks = fmt_seg_inputs(FMT_R, tile, ob, rng, gen, False,
+                                        True)
+        mask8 = args[1].view(torch.int32) & 0xFF
+        groups = sum(int(((mask8 >> c) & 1).sum()) for c in range(8))
+        runs.append((f"seg_reduce TILE={tile} OB={ob} m={args[0].shape[0]}",
+                     groups,
+                     lambda x_, a, tile=tile, ob=ob, n=n_blocks:
+                     fmtprobe_cuda.seg_reduce(*a, x_, tile, ob, n), s, args))
+    for label, edges, op, x_, aux in runs:
+        sec = chained_device_time(op, x_, aux, iters=30)
+        log(f"  {label}: {sec * 1e3:.4f} ms chained, {edges} edges, "
+            f"{edges / sec / 1e9:.3f} G edges/s, "
+            f"{sec / edges * 1e12:.1f} ps an edge")
 
 
 def phase10(recs) -> None:
@@ -1569,16 +1663,26 @@ def phase10(recs) -> None:
                       lib_name="torch.sum")
             del a
 
-        # --- i8_slab: random 0/1 and all ones, blocks 512 and 1024 --------
+        # --- i8_slab: random 0/1, all ones and every int8 value, blocks 512
+        # and 1024 ----------------------------------------------------------
         rec = recs["i8_slab"]
         x_dy = torch.randint(-8, 9, (k, 16), generator=gen, device=DEVICE,
                              dtype=f32) / 4
         x_n = torch.randn((k, 16), generator=gen, device=DEVICE)
-        for kind in ("random 0/1", "all ones"):
-            a = (torch.randint(0, 2, (r, k), generator=gen, device=DEVICE,
-                               dtype=torch.int8) if kind == "random 0/1"
-                 else torch.ones((r, k), dtype=torch.int8, device=DEVICE))
-            for feat, x in (("dyadic", x_dy), ("normal", x_n)):
+        for kind in ("random 0/1", "all ones", "every int8 value"):
+            if kind == "all ones":
+                a = torch.ones((r, k), dtype=torch.int8, device=DEVICE)
+            else:
+                a = torch.randint(0 if kind == "random 0/1" else -128,
+                                  2 if kind == "random 0/1" else 128, (r, k),
+                                  generator=gen, device=DEVICE,
+                                  dtype=torch.int8)
+            if kind == "every int8 value":  # in every row, at random beside
+                a[:, :256] = torch.arange(-128, 128, device=DEVICE).to(
+                    torch.int8)
+            feats = (("dyadic", x_dy),) if kind == "every int8 value" else (
+                ("dyadic", x_dy), ("normal", x_n))
+            for feat, x in feats:
                 want = fmtprobe_cuda.i8_slab_plain(a, x)
                 tol, text = ((torch.zeros_like(want), "exact")
                              if feat == "dyadic" else dense_tol(a, x))
@@ -1587,6 +1691,10 @@ def phase10(recs) -> None:
                             f"block {blk}",
                             lambda: fmtprobe_cuda.i8_slab(a, x, blk),
                             lambda: want, tol, text)
+                if full:
+                    blocks_agree(f"i8_slab R={r} K={k} {kind} x {feat}",
+                                 lambda blk: fmtprobe_cuda.i8_slab(a, x, blk),
+                                 (512, 1024))
                 del want, tol
             if kind == "random 0/1" and not full:
                 idx = a.nonzero().t()
@@ -1685,14 +1793,16 @@ def phase10(recs) -> None:
         del bits
 
         # --- seg_reduce: fmtprobe's five (TILE, OB) pairs -----------------
+        # fmtprobe's inputs, and three tiles a block with a restart (ids
+        # also shuffled within each tile at the reduced R), ones and normal
         rec = recs["seg_reduce"]
+        cases = [(False, False), (True, False)] + ([] if full else
+                                                   [(True, True)])
         for tile, ob in SEG_PAIRS:
-            layouts = [(False, True), (False, False)]
-            if not full:
-                layouts.append((True, False))
-            for several, ones in layouts:
+            for (several, shuffled), ones in itertools.product(
+                    cases, (True, False)):
                 args, n_blocks = fmt_seg_inputs(r, tile, ob, rng, gen,
-                                                several, ones)
+                                                several, ones, shuffled)
                 want = fmtprobe_cuda.seg_reduce_plain(*args, s, tile, ob,
                                                       n_blocks)
                 if ones:
@@ -1706,33 +1816,15 @@ def phase10(recs) -> None:
                     del s_abs
                 label = (f"seg_reduce R={r} TILE={tile} OB={ob} m="
                          f"{args[0].shape[0]} "
-                         f"{'3 tiles a block' if several else 'fmtprobe'} "
+                         f"{'3 tiles a block' if several else 'fmtprobe'}"
+                         f"{', ids shuffled' if shuffled else ''} "
                          f"{'ones' if ones else 'normal'}")
                 compare(rec, label,
                         lambda: fmtprobe_cuda.seg_reduce(*args, s, tile, ob,
                                                          n_blocks),
                         lambda: want, tol, text)
-                if full and ones:
-                    vals, masks, segs, t2b, first = args
-                    m = vals.shape[0]
-                    v = fmtprobe_cuda.seg_fold(vals, masks)
-                    t2b_h = t2b.cpu().numpy()
-                    seg_h = segs.cpu().numpy().ravel()
-                    slot = np.arange(m)
-                    a_csr = csr(t2b_h[slot // tile].astype(np.int64) * ob
-                                + seg_h, slot, (n_blocks * ob, m))
-                    nbytes = (m * 128 * 4 + m * 8 + len(t2b_h) * 8
-                              + n_blocks * ob * 16 * 4)
-                    timed(rec, f"TILE={tile} OB={ob} m={m}",
-                          lambda: fmtprobe_cuda.seg_reduce(
-                              *args, s, tile, ob, n_blocks),
-                          lambda: fmtprobe_cuda.seg_reduce_plain(
-                              *args, s, tile, ob, n_blocks),
-                          lambda: torch.sparse.mm(a_csr, v), nbytes,
-                          2 * ob * 16 * m, record=(tile, ob) == (512, 512),
-                          lib_name="torch.sparse.mm (f32 CSR, folded v)",
-                          rate=BF16_TC_OPS_PER_S)
-                    del v, a_csr
+                if full and ones and not several:
+                    seg_library(rec, args, s, tile, ob, n_blocks)
                 del args, want, tol
     log(f"  peak device memory of phase 10: "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
@@ -1757,7 +1849,8 @@ def main() -> int:
     gin_epoch_ms = phase5(layouts, rm, recs)
     phase6(layouts, rm, recs)
     for phase in (lambda: phase7(recs), lambda: phase8(recs),
-                  lambda: phase9(layouts), lambda: phase10(recs)):
+                  lambda: phase9(layouts), lambda: phase10(recs),
+                  lambda: seg_vs_residual(layouts, rm)):
         start = time.perf_counter()
         phase()
         log(f"  phase took {time.perf_counter() - start:.1f} s")

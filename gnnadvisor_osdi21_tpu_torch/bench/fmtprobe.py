@@ -37,7 +37,7 @@ import sys
 
 DEFAULT_ROWS = 410_624
 SECTIONS = ("stream", "slab", "gather", "xlares", "slabvar", "segred")
-THREADS = 256  # threads per CUDA block of the fmt_probe.cu kernels
+THREADS = 256  # threads per CUDA block of stream_sum
 
 
 def main(argv=None) -> int:
@@ -126,7 +126,7 @@ def main(argv=None) -> int:
                 lambda x, a: fmtprobe_cuda.i8_slab(a, x, blk), xb, a8)
             print(f"int8-slab matmul blk={blk} [{r}x{k}]x[{k}x{d}]: "
                   f"{sec*1e3:7.3f} ms ({r*k/sec/1e9:.0f} GB/s read)  {host}  "
-                  f"cuda block {blk} rows x {THREADS} thr", flush=True)
+                  f"cuda block: {fmtprobe_cuda.I8_BLOCK}", flush=True)
         del a8
 
     # ---------------- 3. residual-scale gather --------------------------
@@ -224,7 +224,7 @@ def main(argv=None) -> int:
                     *a, x, tile, ob, n_blocks), s0, aux)
             print(f"segred TILE={tile} OB={ob} m={t_total*tile}: "
                   f"{sec*1e3:7.3f} ms = {t_total*tile/sec/1e6:6.1f} M slots/s"
-                  f"  {host}  cuda block {ob} out rows x {THREADS} thr",
+                  f"  {host}  cuda block: {fmtprobe_cuda.SEG_BLOCK}",
                   flush=True)
             del vals, aux
     return 0

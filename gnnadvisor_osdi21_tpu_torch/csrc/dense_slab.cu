@@ -9,7 +9,11 @@
 //                   cast to bf16, x_t bf16;
 //   _dense_kernel  (gnnadvisor_osdi21_tpu/bench/stepprobe.py:69,
 //                   pallas_call at :82): out[R, 16] = A^T @ x[K, 16] for
-//                   (A, x) int8/bf16, bf16/bf16 and int8/f32.
+//                   (A, x) int8/bf16, bf16/bf16 and int8/f32;
+//   _i8_kernel     (gnnadvisor_osdi21_tpu/bench/fmtprobe.py:118,
+//                   pallas_call at :124): out[R, 16] = A @ x[K, 16], A int8
+//                   [R, K] (row-major: slab columns contiguous) cast to
+//                   bf16, x bf16 (i8_slab; its own ring, below).
 // Any int8 value is taken, not only 0/1, as the TPU kernels cast any.
 //
 // What bounds it.  Bytes: the slab crosses device memory once (K bytes a
@@ -76,6 +80,22 @@
 //   read 8 bytes in.  Rows past R in the last tile compute on whatever the
 //   boxes brought and are not stored (each graph row is its own MMA
 //   column); columns past K arrive as zeros and are not read.
+// - The row-major int8 slab (i8_slab) has a ring of its own
+//   (rows_ring_kernel), which keeps B.12/B.13's consumer untouched.  A
+//   stage is 128 slab columns of a 64-row tile: one box of a 2-D tensor
+//   map over [R, K] (128 bytes of a graph row by 64 rows, 128-byte
+//   swizzled) and the same columns' feature fragments.  (On the H100,
+//   boxes of 64-byte rows streamed a third slower: each row's piece is a
+//   separate 64-byte read.)  The n8 tile j of a warp's 16 rows holds rows
+//   8j..8j+7 (column g is row 8j + g), so the lane (g, t) takes columns
+//   4t..4t+3 of one graph row, the k16 step's B fragments b0 and b1, with
+//   one 32-bit shared load and widens them as above; the eight lanes of
+//   one t read rows 8j..8j+7, which the swizzle puts in distinct banks.
+//   A last stage past K (K a multiple of 64) gets zeros in its box and
+//   only K's fragments, and runs only K's k16 steps.  The [R, 16]
+//   epilogue stages a warp's rows in pairs, row r at r·16 + 8·(r / 2)
+//   floats, conflict-free for this fragment order both ways.  Any R (rows
+//   past R arrive as zeros and are not stored).
 // No atomics; every output element is written once by one thread.
 
 #include <cuda_runtime.h>
@@ -418,6 +438,172 @@ __global__ void __launch_bounds__(Ring<SRC == kBf16 ? 2 : 1, NS>::kThreads)
   }
 }
 
+// The row-major int8 slab's ring (i8_slab): one producer warp and four
+// consumer warps of kWR graph rows each (two n8 tiles); a stage is kKS slab
+// columns (a 128-byte box row) of a kTR-row tile, one box, and their
+// feature fragments.
+struct RowRing {
+  static constexpr int kNC = 4;
+  static constexpr int kWR = 16;
+  static constexpr int kTR = kWR * kNC;
+  static constexpr int kThreads = 32 * (kNC + 1);
+  static constexpr int kStages = 4;
+  static constexpr int kKS = 128;
+  static constexpr int kBoxBytes = kKS * kTR;
+  static constexpr int kFeatBytes = (kKS / 16) * kFragBytes;
+  static constexpr int kStageBytes = kBoxBytes + kFeatBytes;
+  // staging per warp: row r at r·16 + (r / 2)·8 floats
+  static constexpr int kEpi = kWR * kFeat + (kWR / 2) * 8;
+  static_assert(kStageBytes % 1024 == 0,
+                "swizzled boxes start on 1024-byte boundaries");
+};
+
+// out[R, 16] = A @ x, A int8 [R, K] seen through ``map`` ([R, K] bytes,
+// boxes of kKS columns by kTR rows), x's fragments in ``frags``.
+__global__ void __launch_bounds__(RowRing::kThreads)
+    rows_ring_kernel(const __grid_constant__ CUtensorMap map, int K, int R,
+                     const unsigned char* __restrict__ frags,
+                     float* __restrict__ out) {
+  using G = RowRing;
+  constexpr int kStages = G::kStages, kNC = G::kNC, kTR = G::kTR;
+  constexpr int KS = G::kKS, WR = G::kWR;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kStages;
+  const uint32_t base = smem_addr(smem);
+  unsigned char* ring = smem + (((base + kBarrierBytes + 1023) & ~1023u) - base);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tiles = (R + kTR - 1) / kTR;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kNC);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kNC) {  // producer: one lane starts every copy
+    if (lane) return;
+    int seq = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      for (int kc = 0; kc < K; kc += KS, ++seq) {
+        const int slot = seq % kStages;
+        if (seq >= kStages) mbar_wait(&empty[slot], (seq / kStages - 1) & 1);
+        unsigned char* stage = ring + slot * G::kStageBytes;
+        const uint32_t feat = (min(KS, K - kc) / 16) * kFragBytes;
+        mbar_expect_tx(&full[slot], G::kBoxBytes + feat);
+        tensor_load_2d(stage, &map, kc, tile * kTR, &full[slot]);
+        bulk_load(stage + G::kBoxBytes,
+                  frags + static_cast<size_t>(kc / 16) * kFragBytes, feat,
+                  &full[slot]);
+      }
+    }
+    return;
+  }
+
+  // consumer: rows tile·kTR + warp·WR + [0, WR); the lane reads rows
+  // warp·WR + 8j + g, whose box rows swizzle the 16-byte chunks by g
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t row0 = (warp * WR + g) * KS + 4 * t;
+  float* st = reinterpret_cast<float*>(ring + kStages * G::kStageBytes) +
+              warp * G::kEpi;
+  int seq = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    float acc[WR / 8][4];
+#pragma unroll
+    for (int j = 0; j < WR / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+    for (int kc = 0; kc < K; kc += KS, ++seq) {
+      const int slot = seq % kStages;
+      mbar_wait(&full[slot], (seq / kStages) & 1);
+      const unsigned char* stage = ring + slot * G::kStageBytes;
+      const uint4* fs =
+          reinterpret_cast<const uint4*>(stage + G::kBoxBytes) + lane;
+      const int nk16 = min(KS, K - kc) / 16;
+#pragma unroll
+      for (int s = 0; s < KS / 16; ++s) {
+        if (s >= nk16) break;
+        const uint4 q = fs[s * 32];
+        const uint32_t a[4] = {q.x, q.y, q.z, q.w};
+        const unsigned char* col = stage + row0 + ((s ^ g) << 4);
+#pragma unroll
+        for (int j = 0; j < WR / 8; ++j) {
+          uint32_t b0, b1;
+          i8x4_to_bf16x2(*reinterpret_cast<const uint32_t*>(col + j * 8 * KS),
+                         b0, b1);
+          mma_bf16(acc[j], a, b0, b1);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+    }
+
+    // acc[j]: features (g, g + 8) x rows (8j + 2t, 8j + 2t + 1) of the
+    // warp's WR, staged with row r at r·16 + (r / 2)·8
+    const int rw = tile * kTR + warp * WR;  // the warp's first row
+    __syncwarp();  // the last tile's rows have left
+#pragma unroll
+    for (int j = 0; j < WR / 8; ++j) {
+      float* a = st + (8 * j + 2 * t) * kFeat + (4 * j + t) * 8;
+      a[g] = acc[j][0];
+      a[g + 8] = acc[j][2];
+      a[kFeat + g] = acc[j][1];
+      a[kFeat + g + 8] = acc[j][3];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < WR / 8; ++i) {
+      const int rl = 8 * i + (lane >> 2), q = lane & 3;
+      if (rw + rl < R)
+        *reinterpret_cast<float4*>(out + static_cast<size_t>(rw + rl) *
+                                             kFeat + 4 * q) =
+            *reinterpret_cast<const float4*>(st + rl * kFeat +
+                                             (rl >> 1) * 8 + 4 * q);
+    }
+  }
+}
+
+int launch_rows(const void* slab, int K, int R, const void* frags, void* out,
+                cudaStream_t stream) {
+  using G = RowRing;
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(R)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
+  const cuuint32_t box[2] = {G::kKS, G::kTR};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(slab),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = kBarrierBytes + 1024 + G::kStages * G::kStageBytes +
+                      sizeof(float) * G::kNC * G::kEpi;
+  auto kernel = rows_ring_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        G::kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (R + G::kTR - 1) / G::kTR;
+  kernel<<<min(tiles, max(1, sms * min(per_sm, 2))), G::kThreads, smem,
+           stream>>>(map, K, R, static_cast<const unsigned char*>(frags),
+                     static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename X, int NS, bool TRANS>
 int prepare(const void* x, int K, void* frags, cudaStream_t stream) {
   const int n = (K / 16) * 32;
@@ -513,6 +699,23 @@ int gnna_dense_slab(const void* a, int a_bf16, int K, int R, const void* x,
   if (rc) return rc;
   return a_bf16 ? launch_ring<kBf16, 1, false>(a, K, R, frags, out, s)
                 : launch_ring<kInt8, 1, false>(a, K, R, frags, out, s);
+}
+
+// a int8 [R, K] (K a multiple of 64), x bf16 [K, 16] -> out f32 [R, 16];
+// frags: scratch of K / 16 · 512 bytes.  block_rows (a positive multiple
+// of 256, the TPU grid step) is checked and does not change the launch.
+int gnna_i8_slab(const void* a, int R, int K, const void* x, int block_rows,
+                 void* frags, void* out, void* stream) {
+  using namespace gnna::dense;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto mis = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  };
+  if (K <= 0 || K % 64 || R <= 0 || block_rows <= 0 || block_rows % 256 ||
+      mis(a) || mis(x) || mis(frags) || mis(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = prepare<uint16_t, 1, false>(x, K, frags, s);
+  return rc ? rc : launch_rows(a, K, R, frags, out, s);
 }
 
 }  // extern "C"

@@ -59,11 +59,11 @@ SIGNATURES = {
     "gnna_i8_slab_t": (_P, _I, _I, _P, _P, _P, _P),
     # a, a_bf16, K, R, x, x_f32, frags, out, stream
     "gnna_dense_slab": (_P, _I, _I, _I, _P, _I, _P, _P, _P),
-    # the format probe's kernels (csrc/fmt_probe.cu):
+    # a, R, K, x, block_rows, frags, out, stream (the format probe's)
+    "gnna_i8_slab": (_P, _I, _I, _P, _I, _P, _P, _P),
+    # the format probe's other kernels (csrc/fmt_probe.cu):
     # a, src, g, block_bytes, s, out, stream
     "gnna_stream_sum": (_P, _I, _I, _L, _P, _P, _P),
-    # a, R, K, x, block_rows, out, stream
-    "gnna_i8_slab": (_P, _I, _I, _P, _I, _P, _P),
     # vals, masks, segs, t2b, first, T, tile, ob, n_blocks, s, out, stream
     "gnna_seg_reduce": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
 }

@@ -1,16 +1,18 @@
 """The format probe's four kernels, their plain versions and their launch
 counts.
 
-TPU kernels replaced (``gnnadvisor_osdi21_tpu/bench/fmtprobe.py``), all in
-``csrc/fmt_probe.cu``:
+TPU kernels replaced (``gnnadvisor_osdi21_tpu/bench/fmtprobe.py``):
 
 - ``_sum_kernel`` (fmtprobe.py:53, ``pallas_call`` at :63, wrapper
   ``stream``): each ``[block, K]`` row block of an int8, f32 or uint32
   ``[R, K]`` array summed to one f32, plus ``s [8, 128]``: one ``[8, 128]``
-  tile per block (``stream_sum``).  uint32 words count as int32, as there
-  (``astype(int32)`` before f32), so words of 2^31 or more are negative;
-- ``_i8_kernel`` (:118, call :124, ``i8_slab``): ``out[R, D] = bf16(A) @
-  bf16(x)``, A int8 ``[R, K]`` (``i8_slab``);
+  tile per block (``stream_sum``, ``csrc/fmt_probe.cu``).  uint32 words
+  count as int32, as there (``astype(int32)`` before f32), so words of
+  2^31 or more are negative;
+- ``_i8_kernel`` (:118, call :124, ``slab``): ``out[R, D] = bf16(A) @
+  bf16(x)``, A int8 ``[R, K]`` (``i8_slab``).  It runs on a ring of
+  tensor-map boxes in ``csrc/dense_slab.cu``, beside the other probes'
+  dense slabs;
 - ``mk_slab.kern`` (:216, call :235): ``out[R, D] = unpack(bits) @ x`` from
   the row-major uint32 bit slab ``[R, K/32]``, column j in word
   ``j % (K/32)`` at bit ``j // (K/32)`` (``graphs.hybrid.pack_slab_bits``);
@@ -20,15 +22,16 @@ TPU kernels replaced (``gnnadvisor_osdi21_tpu/bench/fmtprobe.py``), all in
   bits in f32 (no TF32), so the two variants differ only in the table's
   dtype.  Its launches count as ``bit_slab`` (bf16) and ``bit_slab_f32``;
 - ``_seg_kernel`` (:287, call :335, ``segred``): the one-hot segment reduce
-  (``seg_reduce``).
+  (``seg_reduce``, ``csrc/fmt_probe.cu``): persistent blocks of threads
+  stream the slots through a ring of 64-slot stages.
 
 As in ``probe_cuda``: each wrapper checks device, dtype, shape and
 contiguity, runs the plain version for CPU tensors only, and for CUDA
 tensors launches its kernel or raises; ``launches`` counts the kernel
 launches.  The slab kernels and the segment reduce compute 16 features
-(the probe's ``--dim``); ``block_rows`` is the graph rows one CUDA block of
-threads owns (a multiple of 256: the TPU grid step's 512 or 1024 rows);
-``bit_slab`` checks it and sizes its own tiles.
+(the probe's ``--dim``); ``block_rows`` is the TPU grid step's rows (512
+or 1024), a multiple of 256: ``i8_slab`` and ``bit_slab`` check it and size
+their own tiles, so every ``block_rows`` gives the same result.
 
 Where the TPU kernel leaves output unwritten, the port defines it: the
 slab kernels write every row (the TPU grid covers ``R // block`` blocks),
@@ -50,9 +53,12 @@ BIT_SLAB_F32 = "bit_slab_f32"
 launches = dict.fromkeys(KERNELS + (BIT_SLAB_F32,), 0)
 
 LANES = 128  # the segment reduce's value lanes (one TPU vreg row)
-STRIP = 256  # graph rows of one CUDA pass: block_rows must be a multiple
+STRIP = 256  # block_rows must be a multiple (as the TPU grid steps, 512, 1024)
 SEG_OBS = (128, 256, 512)  # output-block rows the CUDA segment reduce takes
-SEG_MAX_TILE = 1024
+FRAG_BYTES = 512  # i8_slab's feature fragments: bytes per 16 slab columns
+# the CUDA launch shapes, as the probe script's lines name them
+I8_BLOCK = "the ring's own (persistent, 160 thr, 64-row tiles)"
+SEG_BLOCK = "the ring's own (persistent, 288 thr, 64-slot stages)"
 PLAIN_ROWS = 1 << 16  # rows per piece of the plain slab products
 _SUM_SRC = {torch.int8: 0, torch.float32: 1, torch.uint32: 2}
 
@@ -214,10 +220,12 @@ def i8_slab(a: torch.Tensor, x: torch.Tensor,
 def _i8_slab_cuda(a, x16, block_rows: int) -> torch.Tensor:
     r, k = a.shape
     out = torch.empty((r, FEATURES), dtype=torch.float32, device=a.device)
+    frags = torch.empty(k // 16 * FRAG_BYTES, dtype=torch.uint8,
+                        device=a.device)
     with torch.cuda.device(a.device):
         rc = _build.library().gnna_i8_slab(
-            a.data_ptr(), r, k, x16.data_ptr(), block_rows, out.data_ptr(),
-            _stream(a.device),
+            a.data_ptr(), r, k, x16.data_ptr(), block_rows, frags.data_ptr(),
+            out.data_ptr(), _stream(a.device),
         )
     _build.check("i8_slab", rc)
     launches["i8_slab"] += 1
@@ -264,7 +272,8 @@ def seg_reduce(vals: torch.Tensor, masks: torch.Tensor, segs: torch.Tensor,
     ``seg_reduce_plain``).  ``vals`` f32 [T·tile, 128], ``masks`` uint32
     and ``segs`` int32 [T·tile, 1], ``t2b`` and ``first`` int32 [T], ``s``
     f32 [8, 128].  On the card ``t2b`` must be sorted (each block's tiles
-    contiguous, walked in order) and ``segs`` are fastest sorted within a
+    contiguous, walked in order), ``vals``, ``masks`` and ``segs`` 16-byte
+    aligned (bulk copies), and ``segs`` are fastest sorted within a
     tile."""
     _check_2d("vals", vals, (torch.float32,))
     _check_2d("masks", masks, (torch.uint32,))
@@ -283,13 +292,13 @@ def seg_reduce(vals: torch.Tensor, masks: torch.Tensor, segs: torch.Tensor,
     if _on_cpu(vals, masks, segs, t2b, first, s):
         return seg_reduce_plain(vals, masks, segs, t2b, first, s, tile, ob,
                                 n_blocks)
-    if ob not in SEG_OBS or tile % 16 or not 0 < tile <= SEG_MAX_TILE:
+    if ob not in SEG_OBS or tile % 16 or tile <= 0:
         raise ValueError(f"seg_reduce takes ob in {SEG_OBS} and a tile that "
-                         f"is a multiple of 16 up to {SEG_MAX_TILE}; got "
+                         f"is a positive multiple of 16; got "
                          f"ob={ob}, tile={tile}")
     if n_blocks <= 0:
         raise ValueError(f"n_blocks {n_blocks} must be positive")
-    _aligned(vals)
+    _aligned(vals, masks, segs)
     return _seg_reduce_cuda(vals, masks, segs, t2b, first, s, tile, ob,
                             n_blocks)
 

@@ -268,14 +268,25 @@ def test_stream_sum_matches_jax(kind, block):
 # --- B.8 i8_slab -----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("feat", ("normal", "dyadic"))
-@pytest.mark.parametrize("slab", ("random 0/1", "all ones"))
-@pytest.mark.parametrize("block", (512, 1024))
+# every int8 value takes dyadic features only, whose products (up to 2^8)
+# and sums are exact on both sides
+@pytest.mark.parametrize("block, slab, feat", [
+    *(pytest.param(b, s, f, id=f"{b}-{s}-{f}")
+      for b in (512, 1024) for s in ("random 0/1", "all ones")
+      for f in ("normal", "dyadic")),
+    *(pytest.param(b, "every int8 value", "dyadic",
+                   id=f"{b}-every int8 value-dyadic") for b in (512, 1024)),
+])
 def test_i8_slab_matches_jax(block, slab, feat):
     rng = np.random.default_rng(block + len(slab) + len(feat))
     r, k, d = 2048, 128, 16
-    a = (rng.integers(0, 2, (r, k)) if slab == "random 0/1"
-         else np.ones((r, k))).astype(np.int8)
+    if slab == "every int8 value":  # each pair of rows, in random orders
+        a = np.empty((r, k), np.int8)
+        a[0::2], a[1::2] = np.arange(-128, 0), np.arange(0, 128)
+        a = rng.permuted(a, axis=1)
+    else:
+        a = (rng.integers(0, 2, (r, k)) if slab == "random 0/1"
+             else np.ones((r, k))).astype(np.int8)
     x = _features(rng, k, d, feat)
     want = np.asarray(make_i8_slab(r, k, d)(jnp.asarray(a), jnp.asarray(x),
                                             block=block))
@@ -374,9 +385,11 @@ def test_unpack_rows32_is_the_legacy_order():
 # --- B.10 seg_reduce -----------------------------------------------------------------
 
 
-def _seg_inputs(rng, tile, ob, n_blocks, tiles_per_block, vals_kind):
-    """Sorted segment ids per tile, several tiles per block, the last block
-    without a tile, and a first flag that also restarts one block mid-way."""
+def _seg_inputs(rng, tile, ob, n_blocks, tiles_per_block, vals_kind,
+                shuffled=False):
+    """Segment ids per tile, sorted (or, ``shuffled``, in a random order
+    within each tile), several tiles per block, the last block without a
+    tile, and a first flag that also restarts one block mid-way."""
     covered = n_blocks - 1
     t2b = np.repeat(np.arange(covered, dtype=np.int32), tiles_per_block)
     t_total = len(t2b)
@@ -384,6 +397,8 @@ def _seg_inputs(rng, tile, ob, n_blocks, tiles_per_block, vals_kind):
     first[1:] = t2b[1:] != t2b[:-1]
     first[tiles_per_block + 1] = 1  # block 1 restarts at its second tile
     segs = np.sort(rng.integers(0, ob, (t_total, tile))).astype(np.int32)
+    if shuffled:
+        segs = rng.permuted(segs, axis=1)
     masks = rng.integers(1, 255, (t_total * tile, 1)).astype(np.uint32)
     if vals_kind == "ones":
         vals = np.ones((t_total * tile, 128), np.float32)
@@ -394,12 +409,20 @@ def _seg_inputs(rng, tile, ob, n_blocks, tiles_per_block, vals_kind):
     return (vals, masks, segs.reshape(-1, 1), t2b, first, s), covered
 
 
-@pytest.mark.parametrize("vals_kind", ("normal", "ones"))
-@pytest.mark.parametrize("tile, ob", ((32, 128), (64, 128), (32, 256)))
-def test_seg_reduce_matches_jax(tile, ob, vals_kind):
-    rng = np.random.default_rng(tile + ob + len(vals_kind))
+# segment ids sorted within each tile (the fast case on the card), and
+# shuffled within each tile
+@pytest.mark.parametrize("tile, ob, vals_kind, order", [
+    *(pytest.param(t, o, v, "sorted", id=f"{t}-{o}-{v}")
+      for t, o in ((32, 128), (64, 128), (32, 256))
+      for v in ("normal", "ones")),
+    *(pytest.param(t, o, v, "shuffled", id=f"{t}-{o}-{v}-shuffled")
+      for t, o in ((32, 128), (64, 256)) for v in ("normal", "ones")),
+])
+def test_seg_reduce_matches_jax(tile, ob, vals_kind, order):
+    rng = np.random.default_rng(tile + ob + len(vals_kind) + len(order) - 6)
     d, n_blocks, per_block = 16, 4, 3
-    args, covered = _seg_inputs(rng, tile, ob, n_blocks, per_block, vals_kind)
+    args, covered = _seg_inputs(rng, tile, ob, n_blocks, per_block, vals_kind,
+                                order == "shuffled")
     vals, masks, segs, t2b, first, s = args
     segred = make_segred(d, tile, ob, len(t2b), n_blocks)
     want = np.asarray(segred(*map(jnp.asarray, args)))[: covered * ob]
@@ -486,6 +509,9 @@ def test_cuda_tensors_never_reach_the_plain_version(kernel, monkeypatch):
     ("seg_reduce", dict(tile=24, vals=torch.zeros((48, 128)),
                         masks=torch.zeros((48, 1), dtype=torch.uint32),
                         segs=torch.zeros((48, 1), dtype=torch.int32))),
+    # the ring's bulk copies take masks and ids 16-byte aligned
+    ("seg_reduce", dict(masks=torch.zeros((65, 1), dtype=torch.uint32)[1:])),
+    ("seg_reduce", dict(segs=torch.zeros((65, 1), dtype=torch.int32)[1:])),
 ))
 def test_cuda_launches_check_their_shapes(kernel, over, monkeypatch):
     """What the CUDA kernels cannot take raises before any launch."""
