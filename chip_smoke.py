@@ -71,7 +71,24 @@ PyTorch version on the card:
   each tile (at the reduced shape), and, as information, one
   ``torch.sparse.mm`` over the unfolded values;
 - phase 10b: the segment reduce and the D = 16 residual kernels chained,
-  per edge.
+  per edge;
+- phase 11: the native graph tools (``native/graphtools.cpp``, built with
+  g++): the 10k graph's edges as a text file through the native parser
+  and ``np.loadtxt`` against the ``.npz`` path; the native reorder of the
+  10k graph (a permutation, its edge span beside the NumPy path's) and,
+  twice, of the amazon0505-scale graph (seconds, edge span, fingerprints,
+  whether the two permutations agree, the tiers each gives); then GCN 96
+  -> 16 -> 22 on the decider's reordered auto layout (transposed): the
+  first step against the plain path, launch counts, and ``epoch_ms`` by
+  a short plan as information;
+- phase 12: the ELL, dense and COO paths (PyTorch ops, no kernel): GCN
+  and GIN (and GCN with bf16 GEMMs) on a 4,000-node graph the auto
+  decider gives the dense path, each first step against the same step on
+  the CPU, then 3 steps; at amazon0505 scale, ELL (auto part size) and
+  COO: ``sag`` and the GCN aggregation against the ``index_add_`` oracle
+  and bitwise equal over two runs, GCN and GIN first steps against the
+  CPU, and ``epoch_ms``/``gin_epoch_ms`` by a short plan as information;
+  one manual-mode step (ELL, part size 32).
 
 The layouts of phases 2-6 are built with the probe off, so that they are
 the cost model's.  Every check raises on failure, so the exit code is
@@ -102,11 +119,17 @@ from gnnadvisor_osdi21_tpu_torch.graphs import hybrid
 from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import (
     build_residual_stream, pack_slab_bits, pack_slab_bits_t,
 )
-from gnnadvisor_osdi21_tpu_torch.graphs.loader import synthesize_graph
-from gnnadvisor_osdi21_tpu_torch.ops import (
-    _build, fmtprobe_cuda, probe_cuda, spmm_cuda,
+from gnnadvisor_osdi21_tpu_torch.graphs.loader import (
+    load_graph, synthesize_graph,
 )
-from gnnadvisor_osdi21_tpu_torch.ops.aggregate import exact_f32_matmul
+from gnnadvisor_osdi21_tpu_torch.graphs.reorder import rabbit_permutation
+from gnnadvisor_osdi21_tpu_torch.native import graphtools
+from gnnadvisor_osdi21_tpu_torch.ops import (
+    _build, fmtprobe_cuda, probe_cuda, reference, spmm_cuda,
+)
+from gnnadvisor_osdi21_tpu_torch.ops.aggregate import (
+    aggregate, exact_f32_matmul, is_transposed,
+)
 from gnnadvisor_osdi21_tpu_torch.train import MODELS, nll_loss, train_and_time
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import (
     build_layer_tensors, hybrid_aggregate,
@@ -200,6 +223,13 @@ SEG_PAIRS = ((256, 256), (512, 512), (256, 512), (512, 256), (1024, 512))
 # = 4, 8 (a stage of 16 words only partly filled) and 128
 HARD_KINDS = ("every bit set", "bit 31 in every word", "empty rows and tiles")
 HARD_R, HARD_KS = 8_200, (128, 256, 4096)
+# phases 11-12: the dense path's power-law graph (the 10k graph's mean
+# degree), the widths of the ELL and COO paths' oracle checks (GCN's
+# hidden width, the input width GIN's first layer aggregates at), and the
+# information epoch_ms: 8 windows of 1 epoch, no fit
+DENSE_NODES, DENSE_EDGES = 4_000, 48_000
+PATH_DIMS = (16, 96)
+SHORT_EPOCHS = 8
 
 T0 = time.perf_counter()
 
@@ -950,11 +980,19 @@ def model_inputs(graph, prop, hts, model: str, hidden: int):
     """Features in the layout's orientation, labels, row mask and a fresh
     model on the card."""
     x = prop.pad_features(graph.init_embedding(graph.num_features))
-    x = torch.from_numpy(x.T.copy() if hts[0].transposed else x).to(DEVICE)
+    x = torch.from_numpy(x.T.copy() if is_transposed(hts[0]) else x).to(DEVICE)
     y = torch.from_numpy(prop.pad_features(graph.init_labels(22))).to(DEVICE)
-    mask = torch.from_numpy(prop.hybrid_graph.row_mask).to(DEVICE)
+    mask = row_mask(prop)
+    if mask is not None:
+        mask = torch.from_numpy(mask).to(DEVICE)
     net = MODELS[model](graph.num_features, hidden, 22, device=DEVICE)
     return x, y, mask, net
+
+
+def row_mask(prop):
+    """The hybrid layout's row mask; None for the ELL, dense and COO
+    tensors, which have no padding rows."""
+    return None if prop.hybrid_graph is None else prop.hybrid_graph.row_mask
 
 
 @contextlib.contextmanager
@@ -980,8 +1018,23 @@ def first_step(graph, prop, hts, label: str, model: str = "gcn",
     """One forward/backward on the kernels and on the plain versions, same
     weights: loss and gradients must agree.  Returns the kernel run's
     launch counts and its number of ``index_select`` gathers."""
-    transposed = hts[0].transposed
     x, y, mask, net = model_inputs(graph, prop, hts, model, hidden)
+    run = step_run(net, x, y, mask, hts)
+    spmm_cuda.reset_launches()
+    with counted_gathers() as gathers:
+        loss_k, grads_k = run()
+    counts = dict(spmm_cuda.launches)
+    with plain_kernels():
+        loss_p, grads_p = run()
+    agree(label, net, (loss_k, grads_k), (loss_p, grads_p), rtol,
+          f"launches { {k: v for k, v in counts.items() if v} }, "
+          f"index_select gathers {len(gathers)}")
+    return counts, len(gathers)
+
+
+def step_run(net, x, y, mask, hts):
+    """One forward/backward of ``net``: returns (loss, gradients)."""
+    transposed = is_transposed(hts[0])
 
     def run():
         net.zero_grad(set_to_none=True)
@@ -989,26 +1042,26 @@ def first_step(graph, prop, hts, label: str, model: str = "gcn",
         loss.backward()
         return loss.detach(), [p.grad.detach().clone() for p in net.parameters()]
 
-    spmm_cuda.reset_launches()
-    with counted_gathers() as gathers:
-        loss_k, grads_k = run()
-    counts = dict(spmm_cuda.launches)
-    with plain_kernels():
-        loss_p, grads_p = run()
+    return run
+
+
+def agree(label: str, net, got, want, rtol: float, note: str = "",
+          against: str = "plain") -> None:
+    """A step's (loss, gradients) against another path's, within ``rtol``
+    relative (gradients: of the largest value)."""
+    (loss_k, grads_k), (loss_p, grads_p) = got, want
     rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    log(f"  {label} first step: loss {float(loss_k):.6f} (plain "
-        f"{float(loss_p):.6f}, rel {rel:.2e}, bound {rtol:.2e}); launches "
-        f"{ {k: v for k, v in counts.items() if v} }, index_select "
-        f"gathers {len(gathers)}")
+    log(f"  {label} first step: loss {float(loss_k):.6f} ({against} "
+        f"{float(loss_p):.6f}, rel {rel:.2e}, bound {rtol:.2e}); {note}")
     require(math.isfinite(float(loss_k)) and rel <= rtol,
-            f"{label}: first-step loss disagrees with the plain path")
+            f"{label}: first-step loss disagrees with the {against} path")
     names = [n for n, _ in net.named_parameters()]
     for name, gk, gp in zip(names, grads_k, grads_p):
+        gk = gk.to(gp.device)
         grel = float((gk - gp).abs().max() / gp.abs().max())
         log(f"  {label} grad {name}: max rel err {grel:.2e}")
         require(bool(torch.isfinite(gk).all()) and grel <= rtol,
-                f"{label}: gradient {name} disagrees with the plain path")
-    return counts, len(gathers)
+                f"{label}: gradient {name} disagrees with the {against} path")
 
 
 def train(graph, prop, hts, epochs: int, dry: int, model: str = "gcn",
@@ -1018,13 +1071,13 @@ def train(graph, prop, hts, epochs: int, dry: int, model: str = "gcn",
     y = prop.pad_features(graph.init_labels(22))
     spmm_cuda.reset_launches()
     res = train_and_time(model, hts, x, y, hidden, 22, num_epochs=epochs,
-                         dry_run=dry, mask=prop.hybrid_graph.row_mask,
-                         device=DEVICE)
+                         dry_run=dry, mask=row_mask(prop), device=DEVICE)
     counts = dict(spmm_cuda.launches)
     losses = res["losses"]
     require(len(losses) == res["step"] >= epochs + dry
             and all(map(math.isfinite, losses)), "every loss is finite")
-    require(losses[-1] < losses[0], "training lowers the loss")
+    require(len(losses) == 1 or losses[-1] < losses[0],
+            "training lowers the loss")
     return res, counts
 
 
@@ -1830,6 +1883,258 @@ def phase10(recs) -> None:
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
 
 
+def hybrid_step_counts(hg, transposed: bool, per_step: int) -> dict:
+    """Launches of ``per_step`` aggregations on a hybrid layout: one slab
+    launch each (fused where both slab tiers exist) and one residual."""
+    sfx = "_t" if transposed else ""
+    counts = dict(NO_LAUNCHES)
+    if hg.diag_b and hg.hot_k:
+        counts["fused_slab_matmul" + sfx] = per_step
+    elif hg.diag_b or hg.hot_k:
+        counts["slab_matmul" + sfx] = per_step
+    if hg.num_res_slots:
+        counts["residual_combine" + sfx] = per_step
+    return counts
+
+
+def text_edge_lists(g10) -> None:
+    """The 10k graph's edges as a text file (with a comment line) in the
+    port's git-ignored cache directory: the native parser and np.loadtxt
+    must both read the graph the .npz path reads."""
+    out = hybrid._DEFAULT_CACHE_DIR
+    os.makedirs(out, exist_ok=True)
+    txt = os.path.join(out, f"smoke_10k_edges_{os.getpid()}.txt")
+    npz = txt[:-len(".txt")] + ".npz"
+    ei = g10.edge_index
+    try:
+        np.savetxt(txt, ei.T, fmt="%d",
+                   header="src dst of the 10k power-law graph, seed 0")
+        np.savez(npz, src_li=ei[0], dst_li=ei[1], num_nodes=int(ei.max()) + 1)
+        want = load_graph(npz, 96, 22)
+        for native in (True, False):
+            start = time.perf_counter()
+            got = load_graph(txt, 96, 22, use_native_parser=native)
+            same = got.num_nodes == want.num_nodes and all(
+                np.array_equal(getattr(got, f), getattr(want, f))
+                for f in ("edge_index", "row_pointers", "column_index",
+                          "degrees"))
+            log(f"  text edge list ({ei.shape[1]} lines) through "
+                f"{'the native parser' if native else 'np.loadtxt'}: "
+                f"{time.perf_counter() - start:.3f} s, "
+                f"{'the .npz graph' if same else 'DIFFERS from the .npz graph'}")
+            require(same, "a text edge list loads as the .npz graph")
+    finally:
+        for f in (txt, npz):
+            if os.path.exists(f):
+                os.remove(f)
+
+
+def phase11(layouts, epoch_ms: float) -> None:
+    """Text edge lists and the rabbit reordering through the native
+    library; GCN on the reordered graph's auto layout."""
+    g, head, _ = layouts[0]
+    g10 = layouts[2][0]
+    log("phase 11: reordering and text edge lists")
+    require(graphtools.available(), "g++ builds the native graph tools")
+    found = os.path.exists(graphtools.library_path())
+    start = time.perf_counter()
+    so = graphtools.build()
+    graphtools.get_lib()
+    log(f"  {'found' if found else 'built'} {os.path.basename(so)} in "
+        f"{time.perf_counter() - start:.1f} s")
+    text_edge_lists(g10)
+
+    start = time.perf_counter()
+    perm = graphtools.rabbit_permutation(g10.edge_index, g10.num_nodes)
+    native_s = time.perf_counter() - start
+    require(np.array_equal(np.sort(perm), np.arange(g10.num_nodes)),
+            "the native permutation of the 10k graph is a permutation")
+    start = time.perf_counter()
+    perm_np = rabbit_permutation(g10.edge_index, g10.num_nodes)
+    log(f"  10k power-law (sequential merge): avg_edgeSpan "
+        f"{g10.avg_edgeSpan:.1f} -> native "
+        f"{g10.apply_permutation(perm).avg_edgeSpan:.1f} in {native_s:.3f} s, "
+        f"NumPy path {g10.apply_permutation(perm_np).avg_edgeSpan:.1f} in "
+        f"{time.perf_counter() - start:.2f} s")
+
+    verdict = InputProperty(g, hidden_dim=16,
+                            enable_reorder=True)._should_reorder()
+    perms = []
+    for run in (1, 2):
+        start = time.perf_counter()
+        perm = graphtools.rabbit_permutation(g.edge_index, g.num_nodes)
+        sec = time.perf_counter() - start
+        require(np.array_equal(np.sort(perm), np.arange(g.num_nodes)),
+                "the native permutation is a permutation")
+        rg = g.apply_permutation(perm)
+        src = np.repeat(np.arange(rg.num_nodes, dtype=np.int64),
+                        np.diff(np.asarray(rg.row_pointers, np.int64)))
+        tiers = hybrid.choose_tiers(src, np.asarray(rg.column_index, np.int64),
+                                    rg.num_nodes)
+        log(f"  amazon0505-scale native reorder, run {run}: {sec:.3f} s, "
+            f"avg_edgeSpan {g.avg_edgeSpan:.1f} -> {rg.avg_edgeSpan:.1f}, "
+            f"fingerprint {hybrid.graph_fingerprint(rg)}, tiers "
+            f"(diag_b, hot_k) {tiers}")
+        perms.append(perm)
+    moved = int((perms[0] != perms[1]).sum())
+    log(f"  the two permutations {'agree' if not moved else 'differ'} "
+        f"({moved} of {g.num_nodes} nodes placed differently); "
+        f"_should_reorder: {verdict}; unreordered tiers "
+        f"({head.diag_b}, {head.hot_k})")
+
+    start = time.perf_counter()
+    prop = InputProperty(g, hidden_dim=16, probe=False,
+                         enable_reorder=True).decider()
+    hts = prop.build_tensors(device=DEVICE)
+    rg, hg = prop.graph, prop.hybrid_graph
+    require(prop.reorder_status and rg.reordered and is_transposed(hts[0]),
+            "the decider reorders and builds the transposed layout")
+    log(f"  decider (enable_reorder): fingerprint "
+        f"{hybrid.graph_fingerprint(rg)}, diag_b={hg.diag_b} "
+        f"hot_k={hg.hot_k} res_ob={hg.res_ob} res_tile={hg.res_tile} "
+        f"covers_all={hg.res_covers_all} rows={hg.num_rows} "
+        f"({time.perf_counter() - start:.1f} s)")
+    counts, _ = first_step(rg, prop, hts, "reordered auto layout")
+    require(counts == hybrid_step_counts(hg, True, 4),
+            "one GCN step on the reordered layout launches its tiers' "
+            "kernels 4 times each")
+    res, counts = train(rg, prop, hts, epochs=SHORT_EPOCHS, dry=2)
+    require(counts == hybrid_step_counts(hg, True, 4 * res["step"]),
+            "the tiers' kernels launch 4 times per step")
+    log(f"  trained {res['step']} steps: launches "
+        f"{ {k: v for k, v in counts.items() if v} }; information: epoch_ms "
+        f"{res['epoch_ms']:.4f} over {len(res['window_ms'])} windows of "
+        f"{res['chunk']} epoch (no fit), phase 3's unreordered layout "
+        f"{epoch_ms:.4f}")
+
+
+def vs_cpu(graph, prop, hts, cpu_hts, label: str, model: str, hidden: int,
+           rtol: float = STEP_RTOL) -> None:
+    """One step on the card against the same step on the CPU (same
+    weights, the same method's tensors built for the CPU): no kernel
+    launches on the card, loss and gradients within ``rtol``."""
+    x, y, mask, net = model_inputs(graph, prop, hts, model, hidden)
+    spmm_cuda.reset_launches()
+    start = time.perf_counter()
+    got = step_run(net, x, y, mask, hts)()
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - start
+    require(spmm_cuda.launches == NO_LAUNCHES,
+            f"{label}: the path launches no hybrid kernel")
+    cpu_net = MODELS[model](graph.num_features, hidden, 22, device="cpu")
+    cpu_net.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    start = time.perf_counter()
+    want = step_run(cpu_net, x.cpu(), y.cpu(),
+                    None if mask is None else mask.cpu(), cpu_hts)()
+    agree(label, net, got, want, rtol,
+          f"card {card_s:.3f} s (first call), CPU "
+          f"{time.perf_counter() - start:.2f} s", against="CPU")
+
+
+def against_oracle(graph, gt, label: str) -> None:
+    """``aggregate`` with and without the GCN weighting against the plain
+    oracle (``index_add_``) on the card, within (2n + 4)·2^-24·(|A|·|x|) +
+    1e-6, n the row's degree (both sides sum n rounded products in f32),
+    and two runs bitwise equal; its time at each width, as information."""
+    n = graph.num_nodes
+    src = torch.from_numpy(
+        reference.csr_to_coo(graph.row_pointers, graph.column_index)
+    ).to(DEVICE)
+    dst = torch.from_numpy(graph.column_index).to(DEVICE)
+    count = torch.from_numpy(np.diff(graph.row_pointers)).to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    for d in PATH_DIMS:
+        x = torch.randn((n, d), generator=gen, device=DEVICE)
+        for norm in (False, True):
+            def oracle(v):
+                if norm:
+                    return reference.gcn_aggregate(v, src, dst, gt.degrees, n)
+                return reference.sag(v, src, dst, n)
+
+            got = aggregate(x, gt, norm)
+            again = aggregate(x, gt, norm)
+            torch.cuda.synchronize()
+            require(torch.equal(got, again),
+                    f"{label} D={d} norm={norm}: two runs are bitwise equal")
+            err = (got - oracle(x)).abs()
+            tol = 1e-6 + (2 * count[:, None] + 4) * 2.0 ** -24 * oracle(
+                x.abs())
+            ok = bool((err <= tol).all())
+            ms = time_ms(lambda: aggregate(x, gt, norm))
+            log(f"  {label} {'GCN aggregation' if norm else 'sag'} D={d}: "
+                f"max_abs_err {float(err.max()):.3e} against the oracle "
+                f"(tolerance (2n+4)·2^-24·(|A|·|x|) + 1e-6) "
+                f"{'ok' if ok else 'FAIL'}; bitwise repeatable; "
+                f"{ms:.4f} ms (information)")
+            require(ok, f"{label}: the aggregation disagrees with the oracle")
+
+
+def phase12(layouts, epoch_ms: float, gin_epoch_ms: float) -> None:
+    """The ELL, dense and COO paths: the dense one on a 4,000-node graph
+    the auto decider gives it, ELL and COO at amazon0505 scale."""
+    log("phase 12: the ELL, dense and COO paths")
+    g4 = synthesize_graph(DENSE_NODES, DENSE_EDGES, num_features=96,
+                          num_classes=22, kind="powerlaw")
+    for model, hidden, gemm in (("gcn", 16, "float32"),
+                                ("gin", GIN_HIDDEN, "float32"),
+                                ("gcn", 16, "bfloat16")):
+        prop = InputProperty(g4, hidden_dim=hidden, model=model,
+                             gemm_dtype=gemm).decider()
+        require(prop.layer_input.method == "dense",
+                "the auto decider picks dense at 4,000 nodes")
+        hts = prop.build_tensors(device=DEVICE)
+        label = f"dense 4k {model} {gemm} GEMMs"
+        # bf16 GEMMs: a summation-order difference can flip the rounding
+        # of the next GEMM's bf16 operand, as GIN_BF16_RTOL says
+        vs_cpu(g4, prop, hts, prop.build_tensors(device="cpu"), label, model,
+               hidden, STEP_RTOL if gemm == "float32" else GIN_BF16_RTOL)
+        res, counts = train(g4, prop, hts, epochs=0, dry=3, model=model,
+                            hidden=hidden)
+        require(counts == NO_LAUNCHES, "the dense path launches no kernel")
+        log(f"  {label}, 3 steps: losses "
+            f"{', '.join(f'{v:.5f}' for v in res['losses'])}")
+
+    g, _, _ = layouts[0]
+    for method in ("ell", "coo"):
+        start = time.perf_counter()
+        prop = InputProperty(g, hidden_dim=16, method=method).decider()
+        gin = InputProperty(g, hidden_dim=GIN_HIDDEN, model="gin",
+                            method=method).decider()
+        require(gin.layer_input.part_size == prop.layer_input.part_size,
+                "GCN and GIN share the graph's tensors")
+        hts = prop.build_tensors(device=DEVICE)
+        gt = hts[0]
+        note = f"{gt.coo_src.numel()} edges" if method == "coo" else (
+            f"auto part_size {gt.part_size}, {gt.part_cols.shape[0]} parts, "
+            f"padding waste "
+            f"{1 - float(gt.part_lens.sum()) / gt.part_cols.numel():.3f}")
+        log(f"  {method} amazon0505-scale: {note} "
+            f"({time.perf_counter() - start:.1f} s)")
+        against_oracle(g, gt, method)
+        cpu_hts = prop.build_tensors(device="cpu")
+        vs_cpu(g, prop, hts, cpu_hts, f"{method} GCN", "gcn", 16)
+        vs_cpu(g, gin, hts, cpu_hts, f"{method} GIN", "gin", GIN_HIDDEN)
+        del cpu_hts
+        res, counts = train(g, prop, hts, epochs=SHORT_EPOCHS, dry=2)
+        gres, gcounts = train(g, gin, hts, epochs=SHORT_EPOCHS, dry=2,
+                              model="gin", hidden=GIN_HIDDEN)
+        require(counts == gcounts == NO_LAUNCHES,
+                f"the {method} path launches no kernel")
+        log(f"  {method}, information (no fit, {len(res['window_ms'])} "
+            f"windows of 1 epoch): epoch_ms {res['epoch_ms']:.4f} (hybrid, "
+            f"phase 3: {epoch_ms:.4f}), gin_epoch_ms {gres['epoch_ms']:.4f} "
+            f"(hybrid, phase 5: {gin_epoch_ms:.4f})")
+
+    prop = InputProperty(g, hidden_dim=16, manual_mode=True).decider()
+    require((prop.layer_input.method, prop.layer_input.part_size) == (
+        "ell", 32), "manual mode runs ELL at part_size 32")
+    res, counts = train(g, prop, prop.build_tensors(device=DEVICE), epochs=0,
+                        dry=1)
+    require(counts == NO_LAUNCHES, "the ELL path launches no kernel")
+    log(f"  manual mode (ell, part_size 32), one step: loss "
+        f"{res['losses'][0]:.5f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1850,7 +2155,9 @@ def main() -> int:
     phase6(layouts, rm, recs)
     for phase in (lambda: phase7(recs), lambda: phase8(recs),
                   lambda: phase9(layouts), lambda: phase10(recs),
-                  lambda: seg_vs_residual(layouts, rm)):
+                  lambda: seg_vs_residual(layouts, rm),
+                  lambda: phase11(layouts, epoch_ms),
+                  lambda: phase12(layouts, epoch_ms, gin_epoch_ms)):
         start = time.perf_counter()
         phase()
         log(f"  phase took {time.perf_counter() - start:.1f} s")

@@ -11,7 +11,9 @@ arrays to its JAX-package counterpart (tests/test_torch_loader.py).
   reference multiplies ``degrees[src]*degrees[dst]`` in its aggregation,
   so these are sqrt-degrees, not inverse sqrt-degrees;
 - synthetic features ``randn(N, dim)``, all-ones labels and the
-  100%/30%/10% train/val/test masks (dataset.py:45-53, 124-136).
+  100%/30%/10% train/val/test masks (dataset.py:45-53, 124-136);
+- ``.npz`` graphs and text edge lists (``load_graph``), and the CSR
+  rebuild after a reordering (``GraphCSR.apply_permutation``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import time
 from typing import Tuple
 
 import numpy as np
+
+from gnnadvisor_osdi21_tpu_torch.native import graphtools
 
 
 def _sqrt_degrees(row_pointers: np.ndarray) -> np.ndarray:
@@ -100,6 +104,31 @@ class GraphCSR:
         del num_classes
         return np.ones(self.num_nodes, dtype=np.int32)
 
+    def apply_permutation(self, perm: np.ndarray) -> "GraphCSR":
+        """Relabel nodes by ``perm`` (old id -> new id) and rebuild CSR.
+
+        This is the post-reordering CSR rebuild of dataset.py:160-172; the
+        permutation itself comes from the rabbit reordering pass.
+        """
+        new_edges = np.stack(
+            [perm[self.edge_index[0]], perm[self.edge_index[1]]]
+        ).astype(np.int64)
+        row_pointers, column_index = build_csr(new_edges, self.num_nodes)
+        span = (
+            float(np.mean(np.abs(new_edges[0] - new_edges[1])))
+            if new_edges.shape[1]
+            else 0.0
+        )
+        return dataclasses.replace(
+            self,
+            edge_index=new_edges,
+            row_pointers=row_pointers,
+            column_index=column_index,
+            degrees=_sqrt_degrees(row_pointers),
+            avg_edgeSpan=span,
+            reordered=True,
+        )
+
 
 def _from_edges(
     src: np.ndarray,
@@ -135,23 +164,35 @@ def load_graph(
     path: str,
     num_features: int = 16,
     num_classes: int = 10,
+    load_from_txt: bool = False,
     verbose: bool = False,
+    use_native_parser: bool = True,
 ) -> GraphCSR:
-    """Load a graph from a ``.npz`` file (``src_li``, ``dst_li``,
-    ``num_nodes`` schema, as the reference's dataset.py:87-94).
+    """Load a graph from a ``.txt`` edge list or a ``.npz`` file.
 
-    Text edge lists and the native parser are not ported yet
-    (ROADMAP.md item A.3)."""
+    API parity with ``custom_dataset(path, dim, num_class, load_from_txt)``
+    (dataset.py:24).  ``.npz`` schema: ``src_li``, ``dst_li``, ``num_nodes``
+    (dataset.py:87-94).  ``.txt`` (or any name with ``load_from_txt``):
+    one "src dst" pair per line, ``#`` comments; the node count is
+    ``max(node id) + 1`` (dataset.py:59-74).  The native parser
+    (``native/graphtools``) reads it unless ``use_native_parser`` is False
+    or no ``g++`` can build it; ``np.loadtxt`` reads it otherwise.
+    """
     start = time.perf_counter()
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            "only .npz graphs load in the torch port; text edge lists wait "
-            "for the native/ port (ROADMAP.md item A.3)"
-        )
-    obj = np.load(path)
-    src = np.asarray(obj["src_li"], dtype=np.int64)
-    dst = np.asarray(obj["dst_li"], dtype=np.int64)
-    num_nodes = int(obj["num_nodes"])
+    if load_from_txt or path.endswith(".txt"):
+        if use_native_parser and graphtools.available():
+            src, dst = graphtools.parse_edge_list(path)
+        else:
+            data = np.loadtxt(path, dtype=np.int64, comments="#", ndmin=2)
+            src, dst = data[:, 0], data[:, 1]
+        num_nodes = int(max(src.max(), dst.max())) + 1
+    else:
+        if not path.endswith(".npz"):
+            raise ValueError("graph file must be a .npz file")
+        obj = np.load(path)
+        src = np.asarray(obj["src_li"], dtype=np.int64)
+        dst = np.asarray(obj["dst_li"], dtype=np.int64)
+        num_nodes = int(obj["num_nodes"])
     g = _from_edges(src, dst, num_nodes, num_features, num_classes)
     if verbose:
         print(f"# Loading (s): {time.perf_counter() - start:.3f}")

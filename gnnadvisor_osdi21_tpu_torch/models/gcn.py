@@ -19,6 +19,7 @@ from torch import nn
 
 from gnnadvisor_osdi21_tpu_torch.device import resolve_device
 from gnnadvisor_osdi21_tpu_torch.ops.aggregate import gcn_conv, is_transposed
+from gnnadvisor_osdi21_tpu_torch.ops.graph_tensors import GraphTensors
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import HybridTensors
 
 
@@ -71,11 +72,13 @@ class GCN(nn.Module):
         )
 
     def forward(
-        self, x: torch.Tensor, hts: Sequence[HybridTensors]
+        self, x: torch.Tensor,
+        hts: Sequence[HybridTensors] | Sequence[GraphTensors],
     ) -> torch.Tensor:
         """x [R, in] -> log-probabilities [R, classes] (transposed layouts:
-        [in, R] -> [classes, R]).  ``hts`` = (input-layer, hidden-layer)
-        layouts; the same one twice is fine."""
+        [in, R] -> [classes, R]).  ``hts`` = the (input-layer, hidden-layer)
+        tensor sets, hybrid layouts or ELL/dense/COO ``GraphTensors``; the
+        same one twice is fine."""
         h = torch.relu(gcn_conv(x, self.conv1, hts[0]))
         out = gcn_conv(h, self.conv2, hts[-1])
         return torch.log_softmax(out, dim=0 if is_transposed(hts[0]) else 1)

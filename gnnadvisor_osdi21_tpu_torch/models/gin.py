@@ -22,6 +22,7 @@ from gnnadvisor_osdi21_tpu_torch.models.gcn import (
     _uniform_weight, load_jax_params,
 )
 from gnnadvisor_osdi21_tpu_torch.ops.aggregate import gin_conv, is_transposed
+from gnnadvisor_osdi21_tpu_torch.ops.graph_tensors import GraphTensors
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import HybridTensors
 
 NUM_LAYERS = 5
@@ -54,11 +55,13 @@ class GIN(nn.Module):
             setattr(self, name, nn.Parameter(w.to(dev)))
 
     def forward(
-        self, x: torch.Tensor, hts: Sequence[HybridTensors]
+        self, x: torch.Tensor,
+        hts: Sequence[HybridTensors] | Sequence[GraphTensors],
     ) -> torch.Tensor:
         """x [R, in] -> log-probabilities [R, classes] (transposed layouts:
-        [in, R] -> [classes, R]).  ``hts`` = (input-layer, hidden-layer)
-        layouts: layer 1 aggregates on the first, layers 2-5 on the last."""
+        [in, R] -> [classes, R]).  ``hts`` = the (input-layer, hidden-layer)
+        tensor sets, hybrid layouts or ELL/dense/COO ``GraphTensors``:
+        layer 1 aggregates on the first, layers 2-5 on the last."""
         h = x
         for i, name in enumerate(LAYER_NAMES):
             ht = hts[0] if i == 0 else hts[-1]

@@ -47,8 +47,8 @@ class HybridTensors:
     ``res_src`` (``res_gather[res_dst]``, whatever the JAX gather's
     stages), which the residual kernels gather by themselves, in place of
     ``res_gather``/``res_dst``; and the TPU kernel geometry
-    (``block_rows``, ``feature_tile``) and ``gemm_dtype`` are gone: the
-    kernels choose their own geometry, and GEMMs run in f32."""
+    (``block_rows``, ``feature_tile``) is gone: the kernels choose their
+    own geometry."""
 
     degrees: torch.Tensor  # [R] f32
     row_mask: torch.Tensor  # [R] f32
@@ -69,6 +69,8 @@ class HybridTensors:
     agg_dtype: str = "float32"
     transposed: bool = True
     res_covers_all: bool = False
+    # the model's GEMM dtype (ops.aggregate._gemm), as on GraphTensors
+    gemm_dtype: str = "float32"
 
     @property
     def method(self) -> str:
@@ -80,6 +82,7 @@ def build_hybrid_tensors(
     device=None,
     agg_dtype: str = "float32",
     transposed: bool = True,
+    gemm_dtype: str = "float32",
 ) -> HybridTensors:
     """Move a layout onto ``device`` (None: the card), for the transposed
     kernels or, with ``transposed=False``, the row-major ones.
@@ -132,6 +135,7 @@ def build_hybrid_tensors(
         agg_dtype=agg_dtype,
         transposed=transposed,
         res_covers_all=hg.res_covers_all,
+        gemm_dtype=gemm_dtype,
     )
 
 
@@ -140,6 +144,7 @@ def build_layer_tensors(
     device=None,
     agg_dtype: str = "float32",
     transposed: bool = True,
+    gemm_dtype: str = "float32",
 ) -> tuple[HybridTensors, HybridTensors]:
     """The (input-layer, hidden-layer) tensors of one layout: one tensor set
     for both layers, since ``res_src`` serves every width (the JAX decider
@@ -147,6 +152,7 @@ def build_layer_tensors(
     tuner/decider.py:349-382 there)."""
     ht = build_hybrid_tensors(
         hg, device=device, agg_dtype=agg_dtype, transposed=transposed,
+        gemm_dtype=gemm_dtype,
     )
     return ht, ht
 

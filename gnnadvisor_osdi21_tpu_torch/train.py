@@ -12,10 +12,10 @@ The port of ``gnnadvisor_osdi21_tpu/train.py:34-55, 158-328``:
   ``chunk // 8`` epochs.
 
 Models: the 2-layer GCN and the 5-layer GIN, on a transposed or a
-row-major hybrid layout.  Not ported yet: CUDA-graph capture of the step
-(the analog of the JAX package's whole-run ``lax.scan``) and
-checkpoint/resume (ROADMAP.md item A.6), and the ELL, dense and COO
-layouts (item A.4).
+row-major hybrid layout or on the ELL, dense and COO tensors (row-major,
+no padding rows).  Not ported yet: CUDA-graph capture of the step (the
+analog of the JAX package's whole-run ``lax.scan``) and checkpoint/resume
+(ROADMAP.md item A.6).
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from gnnadvisor_osdi21_tpu_torch.models.gin import GIN
 from gnnadvisor_osdi21_tpu_torch.ops.aggregate import (
     exact_f32_matmul, is_transposed,
 )
+from gnnadvisor_osdi21_tpu_torch.ops.graph_tensors import GraphTensors
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import HybridTensors
 
 
@@ -81,7 +82,7 @@ MIN_WINDOWS = 8  # timed windows of each size
 
 def train_and_time(
     model: str,
-    hts: Sequence[HybridTensors],
+    hts: Sequence[HybridTensors] | Sequence[GraphTensors],
     x,
     y,
     hidden: int,
@@ -116,8 +117,10 @@ def train_and_time(
     On the CPU (``device="cpu"``) nothing is timed: the ``dry_run +
     num_epochs`` steps run and ``epoch_ms`` is None.
 
-    ``x`` [R, D] row-major features and ``y`` [R] labels in the layout's
-    padded row space; ``mask`` [R] (1 on real rows).  ``init_params``
+    ``x`` [R, D] row-major features and ``y`` [R] labels in the tensors'
+    row space (``InputProperty.pad_features``: the hybrid layout's padded
+    rows, the graph's N rows otherwise); ``mask`` [R] (1 on real rows;
+    None for the ELL, dense and COO tensors, which have no padding).  ``init_params``
     carries JAX weights across (``params_from_jax``); otherwise the
     weights come from a ``torch.Generator`` seeded with ``seed``.
 

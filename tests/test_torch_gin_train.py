@@ -175,3 +175,83 @@ def test_unknown_model_is_refused(skewed_graph):
     with pytest.raises(ValueError, match="unknown model"):
         train_and_time("sage", (), np.zeros((4, 2), np.float32),
                        np.zeros(4, np.int32), 2, 2, device="cpu")
+
+
+PATHS = ["dense", "ell", "coo", "hybrid_reordered"]
+
+
+@pytest.fixture(scope="module", params=PATHS)
+def path_setup(request):
+    """GIN on the ELL, dense and COO paths (no mask) of a 3000-node graph,
+    the dense one by the auto decider, and on the row-major auto hybrid
+    layout of a reordered 5000-node graph, at f32 aggregation (the cases
+    above hold bf16 aggregation, whose rounding flips need 1e-4);
+    features and labels follow ``prop.graph``."""
+    path = request.param
+    if path == "hybrid_reordered":
+        g = synthesize_graph(5000, 40000, num_features=IN,
+                             num_classes=CLASSES, kind="web", seed=4)
+        kw = dict(enable_reorder=True, transposed=False,
+                  agg_dtype="float32")
+    else:
+        g = synthesize_graph(3000, 24000, num_features=IN,
+                             num_classes=CLASSES, kind="powerlaw", seed=4)
+        kw = {} if path == "dense" else dict(method=path)
+    kw.update(hidden_dim=HIDDEN, model="gin")
+    jgts = JaxProperty(g, probe=False, **kw).decider().build_tensors()
+    tp = InputProperty(g, **kw).decider()
+    thts = tp.build_tensors(device="cpu")
+    assert tp.layer_input.method == path.split("_")[0]
+    assert tp.reorder_status == (path == "hybrid_reordered")
+    rng = np.random.default_rng(8)
+    x = tp.pad_features(tp.graph.init_embedding(IN))
+    y = tp.pad_features(
+        rng.integers(0, CLASSES, tp.graph.num_nodes).astype(np.int32))
+    params = init_gin(jax.random.PRNGKey(3), IN, HIDDEN, CLASSES)
+    return dict(
+        jgts=jgts, thts=thts, x=x, y=y, params=params,
+        mask=None if tp.hybrid_graph is None else tp.hybrid_graph.row_mask,
+        params_np={k: np.asarray(v) for k, v in params.items()},
+    )
+
+
+def _jax_path_loss(params, s):
+    out = gin_apply(params, jnp.asarray(s["x"]), s["jgts"])
+    mask = None if s["mask"] is None else jnp.asarray(s["mask"])
+    return jax_nll_loss(out, jnp.asarray(s["y"]), mask, transposed=False)
+
+
+def test_gin_paths_first_step_matches_jax(path_setup):
+    """Loss and gradients within 1e-5 relative (of the largest value)."""
+    s = path_setup
+    want_loss, want_grads = jax.value_and_grad(_jax_path_loss)(s["params"], s)
+    net = GIN(IN, HIDDEN, CLASSES, device="cpu").params_from_jax(
+        s["params_np"])
+    out = net(torch.from_numpy(s["x"]), s["thts"])
+    mask = None if s["mask"] is None else torch.from_numpy(s["mask"])
+    loss = nll_loss(out, torch.from_numpy(s["y"]), mask, transposed=False)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    for name, want in want_grads.items():
+        want = np.asarray(want)
+        np.testing.assert_allclose(
+            getattr(net, name).grad.numpy(), want, rtol=1e-5,
+            atol=1e-5 * float(np.abs(want).max()))
+
+
+def test_gin_paths_three_adam_steps_match_optax(path_setup):
+    s = path_setup
+    mask = None if s["mask"] is None else jnp.asarray(s["mask"])
+    step = make_train_step(gin_apply, s["jgts"], optax.adam(0.01), mask=mask)
+    params = jax.tree.map(jnp.array, s["params"])
+    opt_state = optax.adam(0.01).init(params)
+    want = []
+    for _ in range(3):
+        params, opt_state, loss = step(
+            params, opt_state, jnp.asarray(s["x"]), jnp.asarray(s["y"]))
+        want.append(float(loss))
+    res = train_and_time(
+        "gin", s["thts"], s["x"], s["y"], HIDDEN, CLASSES, num_epochs=0,
+        dry_run=3, mask=s["mask"], device="cpu", init_params=s["params_np"],
+    )
+    np.testing.assert_allclose(res["losses"], want, rtol=RTOL)

@@ -80,17 +80,85 @@ def test_user_fixed_tiers_pass_through(skewed_graph):
     assert (tp.diag_b, tp.hot_k) == (512, 512)
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(method="ell"), dict(enable_reorder=True), dict(manual_mode=True),
-])
-def test_unported_options_name_the_roadmap(skewed_graph, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A"):
-        InputProperty(skewed_graph, hidden_dim=8, **kwargs).decider()
+def _graph_with_few_long_edges():
+    """Mostly self loops: a mean edge span below the reorder threshold."""
+    n = 3000
+    src = np.concatenate([np.arange(n), np.arange(50)])
+    dst = np.concatenate([np.arange(n), np.arange(50) + 1])
+    from gnnadvisor_osdi21_tpu.graphs.loader import _from_edges
+
+    return _from_edges(src, dst, n, 12, 5)
 
 
-def test_auto_method_below_dense_limit_is_not_ported(small_graph):
-    with pytest.raises(NotImplementedError, match="'dense'"):
-        InputProperty(small_graph, hidden_dim=8).decider()
+DECIDER_CASES = {
+    "auto_dense": (3000, "powerlaw", {}),
+    "auto_dense_reorder": (3000, "community", dict(enable_reorder=True)),
+    "auto_hybrid": (6000, "web", {}),
+    "auto_hybrid_reorder": (6000, "powerlaw", dict(enable_reorder=True)),
+    "auto_ell": (3000, "powerlaw", dict(method="ell")),
+    "auto_coo_user_part_size": (3000, "web", dict(method="coo", part_size=16)),
+    "auto_no_reorder_needed": (None, None, dict(enable_reorder=True)),
+    "manual": (3000, "powerlaw", dict(manual_mode=True)),
+    "manual_reorder": (3000, "web", dict(manual_mode=True,
+                                         enable_reorder=True)),
+    "manual_user_values": (6000, "powerlaw", dict(
+        manual_mode=True, method="coo", part_size=24, enable_reorder=True)),
+    "manual_hybrid": (6000, "web", dict(manual_mode=True, method="hybrid")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECIDER_CASES))
+def test_decider_choices_equal_jax(case):
+    """Method, part size, reordering, tiers and the (reordered) graph, in
+    auto and manual mode."""
+    n, kind, kw = DECIDER_CASES[case]
+    g = (_graph_with_few_long_edges() if n is None else synthesize_graph(
+        n, 10 * n, num_features=12, num_classes=5, kind=kind, seed=2))
+    jp = JaxProperty(g, hidden_dim=8, probe=False, **kw).decider()
+    tp = InputProperty(g, hidden_dim=8, **kw).decider()
+    for lj, lt in ((jp.layer_input, tp.layer_input),
+                   (jp.layer_hidden, tp.layer_hidden)):
+        assert (lt.method, lt.part_size, lt.feature_dim) == (
+            lj.method, lj.part_size, lj.feature_dim)
+    assert tp.part_size == jp.part_size
+    assert tp.reorder_status == jp.reorder_status
+    assert tp.reorder_status == (kw.get("enable_reorder", False)
+                                 and case != "auto_no_reorder_needed")
+    assert (tp.diag_b, tp.hot_k) == (jp.diag_b, jp.hot_k)
+    assert tp.graph.reordered == tp.reorder_status
+    for name in ("edge_index", "row_pointers", "column_index", "degrees"):
+        a, b = getattr(jp.graph, name), getattr(tp.graph, name)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), name
+    assert tp.graph.avg_edgeSpan == jp.graph.avg_edgeSpan
+
+
+@pytest.mark.parametrize("method", ["ell", "dense", "coo"])
+def test_non_hybrid_tensors_equal_jax(method):
+    """One tensor set for both layers, the JAX tensors' arrays, and no
+    padded row space."""
+    g = synthesize_graph(3000, 30000, num_features=12, num_classes=5,
+                         kind="powerlaw", seed=2)
+    kw = dict(hidden_dim=8, method=method, enable_reorder=True)
+    jin, jhid = JaxProperty(g, **kw).decider().build_tensors()
+    tp = InputProperty(g, **kw).decider()
+    tin, thid = tp.build_tensors(device="cpu")
+    assert tin is thid and jin is jhid
+    assert (tin.method, tin.part_size, tin.num_nodes, tin.gemm_dtype) == (
+        jin.method, jin.part_size, jin.num_nodes, jin.gemm_dtype)
+    for name in ("degrees", "part_cols", "part_lens", "part2node",
+                 "coo_src", "coo_dst", "dense_adj"):
+        a, b = getattr(jin, name), getattr(tin, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert np.array_equal(np.asarray(a), b.numpy()), name
+    x = g.init_embedding(12)
+    assert tp.pad_features(x) is x and tp.unpad_outputs(x) is x
+    assert tp.hybrid_graph is None
+
+
+def test_unknown_method_is_refused(skewed_graph):
+    with pytest.raises(ValueError, match="unknown aggregation method"):
+        InputProperty(skewed_graph, hidden_dim=8, method="csr").decider()
 
 
 def test_layers_straddling_the_gather_width_limit(monkeypatch):

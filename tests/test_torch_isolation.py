@@ -15,6 +15,7 @@ from gnnadvisor_osdi21_tpu_torch.graphs.loader import synthesize_graph
 from gnnadvisor_osdi21_tpu_torch.models.gcn import GCN
 from gnnadvisor_osdi21_tpu_torch.models.gin import GIN
 from gnnadvisor_osdi21_tpu_torch.ops import hybrid_agg, spmm_cuda
+from gnnadvisor_osdi21_tpu_torch.ops.graph_tensors import build_graph_tensors
 from gnnadvisor_osdi21_tpu_torch.train import train_and_time
 from gnnadvisor_osdi21_tpu_torch.tuner.decider import InputProperty
 
@@ -41,7 +42,14 @@ PORT_MODULES = [
     "gnnadvisor_osdi21_tpu_torch.bench.stepprobe",
     "gnnadvisor_osdi21_tpu_torch.bench.fmtprobe",
     "gnnadvisor_osdi21_tpu_torch.ops.fmtprobe_cuda",
+    "gnnadvisor_osdi21_tpu_torch.native",
+    "gnnadvisor_osdi21_tpu_torch.native.graphtools",
+    "gnnadvisor_osdi21_tpu_torch.graphs.partition",
+    "gnnadvisor_osdi21_tpu_torch.graphs.reorder",
+    "gnnadvisor_osdi21_tpu_torch.ops.reference",
+    "gnnadvisor_osdi21_tpu_torch.ops.graph_tensors",
     "chip_smoke",
+    "chip_pair",
 ]
 
 _CHECK = """
@@ -95,6 +103,12 @@ def test_entry_points_refuse_cpu_fallback(no_card, skewed_graph):
     prop = InputProperty(g, hidden_dim=4).decider()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         prop.build_tensors()
+    for method in ("ell", "dense", "coo"):
+        prop = InputProperty(g, hidden_dim=4, method=method).decider()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            prop.build_tensors()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_graph_tensors(g, method=method)
     hg = build_hybrid(skewed_graph, diag_b=512, hot_k=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         hybrid_agg.build_hybrid_tensors(hg)

@@ -54,8 +54,61 @@ def test_load_graph_npz(tmp_path):
     )
 
 
-def test_load_graph_refuses_text_edge_lists(tmp_path):
+TEXT = {
+    "plain": "0 1\n1 2\n2 0\n10 3\n",
+    "comments_and_blank_lines": "# a header\n0 1\n\n1 2\n# mid\n2 0\n\n10 3\n",
+    "duplicates_and_self_loops": "# dup\n4 4\n0 1\n0 1\n1 0\n7 2\n",
+}
+
+
+@pytest.mark.parametrize("native", [True, False])
+@pytest.mark.parametrize("name", ["g.txt", "edges.el"])
+@pytest.mark.parametrize("text", sorted(TEXT))
+def test_load_graph_text_edge_lists(tmp_path, text, name, native):
+    """Both parsers on both sides; a name without ``.txt`` loads as text
+    with ``load_from_txt``."""
+    path = tmp_path / name
+    path.write_text(TEXT[text])
+    kw = dict(num_features=8, num_classes=3, use_native_parser=native,
+              load_from_txt=not name.endswith(".txt"))
+    got = tl.load_graph(str(path), **kw)
+    _assert_same_graph(jl.load_graph(str(path), **kw), got)
+    # every parser reads the same graph
+    _assert_same_graph(
+        got, tl.load_graph(str(path), **{**kw, "use_native_parser": False}))
+
+
+def test_text_and_npz_give_the_same_graph(tmp_path):
+    g = tl.synthesize_graph(2000, 15000, kind="powerlaw", seed=3)
+    txt, npz = str(tmp_path / "g.txt"), str(tmp_path / "g.npz")
+    np.savetxt(txt, g.edge_index.T, fmt="%d")
+    np.savez(npz, src_li=g.edge_index[0], dst_li=g.edge_index[1],
+             num_nodes=int(g.edge_index.max()) + 1)
+    want = tl.load_graph(npz)
+    for native in (True, False):
+        _assert_same_graph(tl.load_graph(txt, use_native_parser=native), want)
+
+
+def test_text_edge_lists_without_gpp_use_loadtxt(tmp_path, monkeypatch):
+    from gnnadvisor_osdi21_tpu_torch.native import graphtools
+
     path = tmp_path / "g.txt"
-    path.write_text("0 1\n1 2\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.load_graph(str(path))
+    path.write_text(TEXT["comments_and_blank_lines"])
+    monkeypatch.setattr(graphtools, "available", lambda: False)
+    monkeypatch.setattr(graphtools, "parse_edge_list", None)  # never reached
+    _assert_same_graph(jl.load_graph(str(path)), tl.load_graph(str(path)))
+
+
+def test_load_graph_refuses_other_files(tmp_path):
+    with pytest.raises(ValueError, match=".npz"):
+        tl.load_graph(str(tmp_path / "g.csv"))
+
+
+@pytest.mark.parametrize("kind", ["powerlaw", "community"])
+def test_apply_permutation_equals_jax(kind):
+    a = jl.synthesize_graph(900, 7000, kind=kind, seed=2)
+    b = tl.synthesize_graph(900, 7000, kind=kind, seed=2)
+    perm = np.random.default_rng(1).permutation(900)
+    pa, pb = a.apply_permutation(perm), b.apply_permutation(perm)
+    _assert_same_graph(pa, pb)
+    assert pa.reordered and pb.reordered
