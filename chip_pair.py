@@ -11,9 +11,11 @@ commit; the script imports that tree's ``chip_smoke`` and package, so it
 must sit in the tree's root), it builds that tree's kernels, the amazon0505-scale graph and its
 auto layout (probe off), and runs phase 3 (GCN 96 -> 16 -> 22,
 transposed: first step against the plain path, ``epoch_ms`` by the
-reference's protocol, the device's idle share) twice.  Each reading
-prints as a ``PAIR epoch_ms ...`` line with the card's name and power
-limit.  Alternating two trees in one call compares them on one card,
+reference's protocol, the device's idle share) twice, then times the
+same model step by step (``train_and_time(use_scan=False)``, 5 dry-run
+epochs and the protocol's windows of 8 and 1) twice.  Each reading
+prints as a ``PAIR epoch_ms ...`` or ``PAIR eager_epoch_ms ...`` line,
+with the 8-epoch windows' spread, the card's name and power limit.  Alternating two trees in one call compares them on one card,
 which single runs on different cards cannot.  Exits 1 without a card.
 """
 
@@ -46,6 +48,12 @@ def main() -> int:
     for _ in range(READINGS):
         epoch_ms = cs.phase3([(g, head, hts)], recs)
         print(f"PAIR epoch_ms {epoch_ms:.4f} on {smi}", flush=True)
+    for _ in range(READINGS):
+        res, _ = cs.train(g, head, hts, epochs=cs.TIMED_EPOCHS, dry=5,
+                          use_scan=False)
+        per = [w / res["chunk"] for w in res["window_ms"]]
+        print(f"PAIR eager_epoch_ms {res['epoch_ms']:.4f} (windows "
+              f"{min(per):.4f}-{max(per):.4f}) on {smi}", flush=True)
     return 0
 
 

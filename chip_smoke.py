@@ -34,15 +34,16 @@ PyTorch version on the card:
 - phase 3: GCN 96 -> 16 -> 22 training on the auto layout (transposed):
   the first step's loss and gradients against the plain path, launch
   counts and ``index_select`` gathers (the hot table's alone),
-  ``epoch_ms`` over timed epochs, and the device time of three steps by
-  kernel (``torch.profiler``);
+  ``epoch_ms`` over timed epochs through the captured step (a CUDA graph
+  replayed, ``train_and_time``'s default), and the device time of three
+  replays by kernel (``torch.profiler``);
 - phase 4: the other transposed wirings (fused diag+hot; diag 4096 with a
   residual that does not cover every block) for a few steps each;
 - phase 5: GIN 96 -> 64 x4 -> 22 training on the auto layout, row-major:
   the first step against the plain path at f32 and at bf16 aggregation,
   launch counts and ``index_select`` gathers (the hot table's alone),
-  ``gin_epoch_ms`` over timed epochs, and the device time
-  of three steps by kernel (``torch.profiler``);
+  ``gin_epoch_ms`` over timed epochs through the captured step, and the
+  device time of three replays by kernel (``torch.profiler``);
 - phase 6: GCN on the row-major fused and 10k layouts for a few steps;
 - phase 7: the probe kernels (``ops/probe_cuda.py``) against their plain
   versions at every dtype pair, block size and K of their path, at a
@@ -57,8 +58,9 @@ PyTorch version on the card:
 - phase 8: the probe scripts ``bench.fixprobe``, ``bench.stepprobe`` and
   ``bench.fmtprobe``, run unmodified in this process (their launches are
   the probe kernels' path);
-- phase 9: the measured-probe tier autotune at amazon0505 scale, and its
-  cache hit on a second build;
+- phase 9: the measured-probe tier autotune at amazon0505 scale, in the
+  layout build of the CLI's GCN run on the same graph (200 epochs,
+  through the captured step), in a cache directory of its own;
 - phase 10: the format probe's kernels (``ops/fmtprobe_cuda.py``) against
   their plain versions for every dtype, variant and block of their path,
   at a reduced and at fmtprobe's full shape, with their time, bound,
@@ -88,7 +90,29 @@ PyTorch version on the card:
   COO: ``sag`` and the GCN aggregation against the ``index_add_`` oracle
   and bitwise equal over two runs, GCN and GIN first steps against the
   CPU, and ``epoch_ms``/``gin_epoch_ms`` by a short plan as information;
-  one manual-mode step (ELL, part size 32).
+  one manual-mode step (ELL, part size 32);
+- phase 13: the entry points.  ``train_and_time``'s captured step
+  (``use_scan=True``) against its step-by-step loop (``use_scan=False``)
+  from the same weights, 10 steps (GCN transposed and GIN row-major at
+  amazon0505 scale, GCN on the dense, ELL and COO tensors of phase 12):
+  losses and final weights within CAPTURE_RTOL, the captured step
+  launching what an eager step launches; ``epoch_ms``/``gin_epoch_ms``
+  step by step, with the windows' spread and the idle share, beside
+  phases 3 and 5's captured ones; the headline bench
+  (``bench/headline.py``) twice, each JSON line printed with its
+  fingerprint and tiers; the CLI in this process (its GCN run at
+  amazon0505 scale is phase 9's), on the 10k graph: ``--verify_spmm`` on
+  the hybrid and ELL paths (PASSED), ``--single_spmm`` (its build times
+  the tier candidates), GIN for the reference's 200 epochs (its build
+  replays that verdict from the cache), and ``--save_ckpt``/``--resume``
+  against a straight run.
+
+In every training run through the captured step the hybrid kernels'
+wrappers count their launches once per eager step and once at capture; a
+replay runs the captured kernels without passing a wrapper.  The checks
+count kernel runs (the wrappers' counts plus the captured step's launches
+for each further replay); the ``kernels`` line reports the wrappers'
+counts of the main path's run (phases 3 and 5).
 
 The layouts of phases 2-6 are built with the probe off, so that they are
 the cost model's.  Every check raises on failure, so the exit code is
@@ -101,6 +125,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
@@ -114,7 +139,10 @@ import time
 import numpy as np
 import torch
 
-from gnnadvisor_osdi21_tpu_torch.bench import fixprobe, fmtprobe, stepprobe
+from gnnadvisor_osdi21_tpu_torch import cli
+from gnnadvisor_osdi21_tpu_torch.bench import (
+    fixprobe, fmtprobe, headline, stepprobe,
+)
 from gnnadvisor_osdi21_tpu_torch.graphs import hybrid
 from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import (
     build_residual_stream, pack_slab_bits, pack_slab_bits_t,
@@ -130,18 +158,23 @@ from gnnadvisor_osdi21_tpu_torch.ops import (
 from gnnadvisor_osdi21_tpu_torch.ops.aggregate import (
     aggregate, exact_f32_matmul, is_transposed,
 )
-from gnnadvisor_osdi21_tpu_torch.train import MODELS, nll_loss, train_and_time
+from gnnadvisor_osdi21_tpu_torch.train import (
+    MODELS, make_captured_step, make_optimizer, make_train_step, nll_loss,
+    train_and_time,
+)
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import (
     build_layer_tensors, hybrid_aggregate,
 )
 from gnnadvisor_osdi21_tpu_torch.tuner.decider import InputProperty
+from gnnadvisor_osdi21_tpu_torch.utils import profiling
+from gnnadvisor_osdi21_tpu_torch.utils.checkpoint import load_checkpoint
 from gnnadvisor_osdi21_tpu_torch.utils.timing import chained_device_time
 
-# H100 SXM data sheet (dense, no sparsity): memory rate and f32 rate
-# outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_TC_OPS_PER_S = 989e12  # tensor cores, dense bf16
+# H100 SXM data sheet (dense, no sparsity): memory rate, f32 rate outside
+# the tensor cores, dense bf16 tensor-core rate (utils/profiling.py)
+HBM_BYTES_PER_S = profiling.HBM_BYTES_PER_S
+F32_OPS_PER_S = profiling.F32_FLOPS
+BF16_TC_OPS_PER_S = profiling.BF16_FLOPS
 # kernel vs plain version on the card: both sum exact f32 products in f32,
 # in different orders; sums of up to a few hundred terms stay well inside
 ATOL, RTOL = 1e-4, 1e-5
@@ -230,6 +263,14 @@ HARD_R, HARD_KS = 8_200, (128, 256, 4096)
 DENSE_NODES, DENSE_EDGES = 4_000, 48_000
 PATH_DIMS = (16, 96)
 SHORT_EPOCHS = 8
+# phase 9: the CLI at amazon0505 scale (the layouts' graph, seed 0), the
+# decider's choice, the reference's default 200 epochs
+AMAZON_CLI = ["--synthetic", "410236:4878874:web", "--manual_mode", "False",
+              "--num_epoches", "200"]
+# phase 13: a captured step against the same step run eagerly with the
+# same Adam: the same kernels on the same inputs, so f32 rounding at most
+# (the kernels and reductions are deterministic)
+CAPTURE_RTOL = 1e-6
 
 T0 = time.perf_counter()
 
@@ -1065,14 +1106,32 @@ def agree(label: str, net, got, want, rtol: float, note: str = "",
 
 
 def train(graph, prop, hts, epochs: int, dry: int, model: str = "gcn",
-          hidden: int = 16):
-    """Reset the launch counts, train, and return (result, counts)."""
+          hidden: int = 16, use_scan: bool = True):
+    """Reset the launch counts, train (``use_scan``: through the captured
+    step, train_and_time's default), and return (result, kernel runs).
+    A captured step's kernels pass their wrappers once, at capture, and
+    run once per replay, which passes no wrapper: the runs are the
+    wrappers' counts plus the captured step's launches for every replay
+    after the first.  The capture must have launched what each eager step
+    launched."""
     x = prop.pad_features(graph.init_embedding(graph.num_features))
     y = prop.pad_features(graph.init_labels(22))
     spmm_cuda.reset_launches()
     res = train_and_time(model, hts, x, y, hidden, 22, num_epochs=epochs,
-                         dry_run=dry, mask=row_mask(prop), device=DEVICE)
+                         dry_run=dry, mask=row_mask(prop), device=DEVICE,
+                         use_scan=use_scan)
     counts = dict(spmm_cuda.launches)
+    per_graph = res["graph_launches"]
+    on_card = torch.device(DEVICE).type == "cuda"
+    require((per_graph is not None) == (use_scan and epochs > 0 and on_card),
+            "train_and_time captured the step exactly when asked to")
+    if per_graph is not None:
+        eager = res["step"] - res["replays"]
+        require(counts == {k: v * (eager + 1) for k, v in per_graph.items()},
+                f"the captured step launched what each of the {eager} eager "
+                f"steps launched ({per_graph} a step; wrappers {counts})")
+        counts = {k: counts[k] + per_graph[k] * (res["replays"] - 1)
+                  for k in counts}
     losses = res["losses"]
     require(len(losses) == res["step"] >= epochs + dry
             and all(map(math.isfinite, losses)), "every loss is finite")
@@ -1104,16 +1163,20 @@ def phase3(layouts, recs) -> float:
             "itself)")
     res, counts = train(g, head, hts, epochs=TIMED_EPOCHS, dry=5)
     steps = res["step"]
-    log(f"  trained {steps} steps: loss {res['losses'][0]:.5f} -> "
-        f"{res['losses'][-1]:.5f}; launches {counts}")
+    log(f"  trained {steps} steps ({res['replays']} replays of the captured "
+        f"step): loss {res['losses'][0]:.5f} -> {res['losses'][-1]:.5f}; "
+        f"kernel runs {counts}; wrapper launches "
+        f"{ {k: v for k, v in spmm_cuda.launches.items() if v} }, "
+        f"{ {k: v for k, v in res['graph_launches'].items() if v} } a replay")
     require(counts == {**NO_LAUNCHES, "slab_matmul_t": 4 * steps,
                        "residual_combine_t": 4 * steps},
-            "hot and residual kernels launch exactly 4 times per step")
-    recs["slab_matmul_t"].launches = counts["slab_matmul_t"]
-    recs["residual_combine_t"].launches = counts["residual_combine_t"]
-    log_windows("epoch_ms", res)
-    log_profile("epoch_ms", res["epoch_ms"],
-                profile_steps(g, head, hts, "gcn", 16))
+            "hot and residual kernels run exactly 4 times per step")
+    recs["slab_matmul_t"].launches = spmm_cuda.launches["slab_matmul_t"]
+    recs["residual_combine_t"].launches = spmm_cuda.launches[
+        "residual_combine_t"]
+    log_windows("epoch_ms (captured)", res)
+    log_profile("epoch_ms (captured)", res["epoch_ms"],
+                profile_steps(g, head, hts, "gcn", 16, use_scan=True))
     return res["epoch_ms"]
 
 
@@ -1123,8 +1186,8 @@ def log_profile(name: str, epoch_ms: float, busy: float) -> None:
         log(f"  device idle share of {name}: {1 - busy / epoch_ms:.3f} "
             "(profiled busy time against the unprofiled step)")
     else:
-        log("  device busy time not measured: the profiler saw no device "
-            "activity")
+        log(f"  device busy time of {name} not measured: the profiler saw "
+            "no device activity, or lost kernel runs")
 
 
 def phase4(layouts, recs) -> None:
@@ -1151,29 +1214,48 @@ def phase4(layouts, recs) -> None:
 
 
 def profile_steps(graph, prop, hts, model: str, hidden: int,
-                  steps: int = 3) -> float:
-    """Device time by kernel over a few training steps (torch.profiler);
-    logs the largest entries and returns the device's busy ms per step
-    (0 when the profiler saw no device activity)."""
+                  steps: int = 3, use_scan: bool = False) -> float:
+    """Device time by kernel over a few training steps (torch.profiler),
+    step by step or (``use_scan``) replays of the captured step; logs the
+    largest entries and returns the device's busy ms per step: 0 when the
+    profiler saw no device activity, or saw fewer runs of the hybrid
+    kernels than the steps ran (it lost events)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    transposed = hts[0].transposed
     x, y, mask, net = model_inputs(graph, prop, hts, model, hidden)
-    opt = torch.optim.Adam(net.parameters(), lr=0.01)
+    opt = make_optimizer(net)
+    train_step = make_train_step(net, hts, opt, mask)
 
     def step():
-        opt.zero_grad(set_to_none=True)
-        nll_loss(net(x, hts), y, mask, transposed).backward()
-        opt.step()
+        train_step(x, y)
 
+    if use_scan:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        # replays: one before the profiler, its warm-up step, ``steps``
+        captured = make_captured_step(net, hts, opt, x, y, mask,
+                                      capacity=steps + 2)
+        step = captured.replay
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
+    # one warm-up step inside the profiler before the recorded ones (its
+    # events are dropped), each step finished before the next begins; the
+    # last step ends with the block, which keeps the recorded cycle
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps)) as prof:
+        for i in range(steps + 1):
+            if i == 1:
+                spmm_cuda.reset_launches()
             step()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            if i < steps:
+                prof.step()
+    runs = sum((captured.launches if use_scan else spmm_cuda.launches)
+               .values()) * (steps if use_scan else 1)
     # device-side entries only: an operator's entry repeats its kernels'
     # time, and so does a user annotation's device range (the optimizer's)
     events = [(e.key, e.count, e.self_device_time_total)
@@ -1182,11 +1264,15 @@ def profile_steps(graph, prop, hts, model: str, hidden: int,
               and not getattr(e, "is_user_annotation", False)
               and e.self_device_time_total > 0]
     busy = sum(t for *_, t in events) / steps / 1e3
-    log(f"  profile of {steps} {model} steps: device busy {busy:.4f} ms per "
-        f"step in {len(events)} kinds of kernel or copy")
+    seen = sum(n for key, n, _ in events if "gnna::" in key)
+    log(f"  profile of {steps} {model} "
+        f"{'replays of the captured step' if use_scan else 'steps'}: "
+        f"device busy {busy:.4f} ms per "
+        f"step in {len(events)} kinds of kernel or copy; it saw {seen} of "
+        f"the {runs} hybrid kernel runs")
     for key, n, t in sorted(events, key=lambda e: -e[2])[:12]:
         log(f"    {t / steps / 1e3:8.4f} ms/step  x{n // steps:<3d} {key[:100]}")
-    return busy
+    return busy if seen == runs else 0.0
 
 
 def phase5(layouts, rm, recs) -> float:
@@ -1208,16 +1294,18 @@ def phase5(layouts, rm, recs) -> float:
     res, counts = train(g, head, hts, epochs=TIMED_EPOCHS, dry=5, model="gin",
                         hidden=GIN_HIDDEN)
     steps = res["step"]
-    log(f"  trained {steps} steps: loss {res['losses'][0]:.5f} -> "
-        f"{res['losses'][-1]:.5f}; launches "
-        f"{ {k: v for k, v in counts.items() if v} }")
+    log(f"  trained {steps} steps ({res['replays']} replays of the captured "
+        f"step): loss {res['losses'][0]:.5f} -> {res['losses'][-1]:.5f}; "
+        f"kernel runs { {k: v for k, v in counts.items() if v} }; wrapper "
+        f"launches { {k: v for k, v in spmm_cuda.launches.items() if v} }, "
+        f"{ {k: v for k, v in res['graph_launches'].items() if v} } a replay")
     require(counts == {k: v * steps for k, v in per_step.items()},
-            "hot and residual kernels launch exactly 9 times per step")
-    recs["slab_matmul"].launches = counts["slab_matmul"]
-    recs["residual_combine"].launches = counts["residual_combine"]
-    log_windows("gin_epoch_ms", res)
-    log_profile("gin_epoch_ms", res["epoch_ms"],
-                profile_steps(g, head, hts, "gin", GIN_HIDDEN))
+            "hot and residual kernels run exactly 9 times per step")
+    recs["slab_matmul"].launches = spmm_cuda.launches["slab_matmul"]
+    recs["residual_combine"].launches = spmm_cuda.launches["residual_combine"]
+    log_windows("gin_epoch_ms (captured)", res)
+    log_profile("gin_epoch_ms (captured)", res["epoch_ms"],
+                profile_steps(g, head, hts, "gin", GIN_HIDDEN, use_scan=True))
     return res["epoch_ms"]
 
 
@@ -1486,12 +1574,14 @@ def phase8(recs) -> None:
 
 
 def phase9(layouts) -> None:
-    """The measured-probe tier autotune at amazon0505 scale: the model's
-    top candidates, each one's probed ms, the verdict; then a second
-    build that must replay the verdict from the cache."""
+    """The measured-probe tier autotune at amazon0505 scale, through the
+    CLI: GCN auto on the same graph for the reference's 200 epochs builds
+    its layout with the probe (the decider's ``probe=None`` on the card:
+    the model's top candidates are close), in an empty cache directory.
+    Logs the model's candidates, each probed ms and the verdict."""
     g, head, _ = layouts[0]
     base = head.hybrid_graph
-    log("phase 9: tier probe (InputProperty(probe=True)) at amazon0505 scale")
+    log("phase 9: tier probe at amazon0505 scale, through the CLI's GCN run")
     src = np.repeat(np.arange(g.num_nodes, dtype=np.int64),
                     np.diff(np.asarray(g.row_pointers, dtype=np.int64)))
     ranked = hybrid.rank_tiers(src, np.asarray(g.column_index, np.int64),
@@ -1513,41 +1603,25 @@ def phase9(layouts) -> None:
     cache_dir = os.path.join(hybrid._DEFAULT_CACHE_DIR,
                              f"chip_smoke-{os.getpid()}")
     shutil.rmtree(cache_dir, ignore_errors=True)
-    saved_env = os.environ.get(hybrid.CACHE_DIR_ENV)
-    os.environ[hybrid.CACHE_DIR_ENV] = cache_dir
     hybrid._probe_spmm_time = recording
     try:
-        verdicts, n_probes = [], []
-        for attempt in ("first", "second"):
-            start = time.perf_counter()
-            n_before = len(probed)
-            prop = InputProperty(g, hidden_dim=16, probe=True).decider()
-            model_pick = (prop.diag_b, prop.hot_k)
-            prop.build_tensors()
-            hg = prop.hybrid_graph
-            verdicts.append((hg.diag_b, hg.hot_k))
-            n_probes.append(len(probed) - n_before)
-            log(f"  {attempt} build: model pick {model_pick}, verdict "
-                f"(diag_b {hg.diag_b}, hot_k {hg.hot_k}), {n_probes[-1]} "
-                f"probes, {time.perf_counter() - start:.1f} s")
-        require(n_probes[0] >= 2, "the first build probed its candidates")
-        require(n_probes[1] == 0,
-                "the second build replayed the cached verdict (no probe)")
-        require(verdicts[0] == verdicts[1], "the cache returns the verdict")
+        with cache_dir_env(cache_dir):
+            run_cli("GCN auto, amazon0505 scale, 200 epochs", AMAZON_CLI)
+        with open(os.path.join(cache_dir, "probe_cache.json")) as fp:
+            verdicts = list(json.load(fp).values())
     finally:
         hybrid._probe_spmm_time = timer
-        if saved_env is None:
-            os.environ.pop(hybrid.CACHE_DIR_ENV, None)
-        else:
-            os.environ[hybrid.CACHE_DIR_ENV] = saved_env
         shutil.rmtree(cache_dir, ignore_errors=True)
+    require(len(probed) >= 2 and len(verdicts) == 1,
+            "the build probed its candidates and cached one verdict")
+    verdict = tuple(verdicts[0])
     best = min(probed, key=lambda p: p[2])
-    kept = verdicts[0] == (base.diag_b, base.hot_k)
-    log(f"  the model's pick (diag_b {base.diag_b}, hot_k {base.hot_k}) "
+    kept = verdict == (base.diag_b, base.hot_k)
+    log(f"  verdict (diag_b {verdict[0]}, hot_k {verdict[1]}): the model's "
+        f"pick (diag_b {base.diag_b}, hot_k {base.hot_k}) "
         f"{'kept' if kept else 'overridden'}: fastest probed (diag_b "
         f"{best[0]}, hot_k {best[1]}) {best[2] * 1e3:.4f} ms; a challenger "
         f"must win by {hybrid.PROBE_MARGIN:.0%}")
-
 
 
 def fmt_seg_inputs(r: int, tile: int, ob: int, rng, gen, several: bool,
@@ -2069,10 +2143,12 @@ def against_oracle(graph, gt, label: str) -> None:
             require(ok, f"{label}: the aggregation disagrees with the oracle")
 
 
-def phase12(layouts, epoch_ms: float, gin_epoch_ms: float) -> None:
+def phase12(layouts, epoch_ms: float, gin_epoch_ms: float) -> dict:
     """The ELL, dense and COO paths: the dense one on a 4,000-node graph
-    the auto decider gives it, ELL and COO at amazon0505 scale."""
+    the auto decider gives it, ELL and COO at amazon0505 scale.  Returns
+    each path's (graph, GCN decider, tensors) for phase 13."""
     log("phase 12: the ELL, dense and COO paths")
+    paths = {}
     g4 = synthesize_graph(DENSE_NODES, DENSE_EDGES, num_features=96,
                           num_classes=22, kind="powerlaw")
     for model, hidden, gemm in (("gcn", 16, "float32"),
@@ -2083,6 +2159,8 @@ def phase12(layouts, epoch_ms: float, gin_epoch_ms: float) -> None:
         require(prop.layer_input.method == "dense",
                 "the auto decider picks dense at 4,000 nodes")
         hts = prop.build_tensors(device=DEVICE)
+        if (model, gemm) == ("gcn", "float32"):
+            paths["dense"] = (g4, prop, hts)
         label = f"dense 4k {model} {gemm} GEMMs"
         # bf16 GEMMs: a summation-order difference can flip the rounding
         # of the next GEMM's bf16 operand, as GIN_BF16_RTOL says
@@ -2103,6 +2181,7 @@ def phase12(layouts, epoch_ms: float, gin_epoch_ms: float) -> None:
         require(gin.layer_input.part_size == prop.layer_input.part_size,
                 "GCN and GIN share the graph's tensors")
         hts = prop.build_tensors(device=DEVICE)
+        paths[method] = (g, prop, hts)
         gt = hts[0]
         note = f"{gt.coo_src.numel()} edges" if method == "coo" else (
             f"auto part_size {gt.part_size}, {gt.part_cols.shape[0]} parts, "
@@ -2133,6 +2212,181 @@ def phase12(layouts, epoch_ms: float, gin_epoch_ms: float) -> None:
     require(counts == NO_LAUNCHES, "the ELL path launches no kernel")
     log(f"  manual mode (ell, part_size 32), one step: loss "
         f"{res['losses'][0]:.5f}")
+    return paths
+
+
+def captured_vs_eager(label: str, graph, prop, hts, model: str,
+                      hidden: int) -> None:
+    """train_and_time's two paths over the same 10 steps from the same
+    weights: step by step (``use_scan=False``), and 2 eager steps then 8
+    replays of the captured step (``use_scan=True``).  Both run one Adam
+    (capturable on the card) and the same kernels, so every loss within
+    CAPTURE_RTOL of the largest loss and every final weight within
+    CAPTURE_RTOL of its tensor's largest value; the captured step
+    launches what an eager step launches."""
+    (eager, e_counts), (cap, c_counts) = (
+        train(graph, prop, hts, epochs=SHORT_EPOCHS, dry=2, model=model,
+              hidden=hidden, use_scan=use_scan) for use_scan in (False, True))
+    steps = eager["step"]
+    per_step = {k: v // steps for k, v in e_counts.items()}
+    require(e_counts == {k: v * steps for k, v in per_step.items()},
+            f"{label}: every step launches the same kernels")
+    require(cap["graph_launches"] == per_step and c_counts == e_counts,
+            f"{label}: the captured step launches what an eager step "
+            f"launches ({cap['graph_launches']} against {per_step})")
+    le, lc = np.array(eager["losses"]), np.array(cap["losses"])
+    pe, pc = eager["params"], cap["params"]
+    loss_err = float(np.abs(le - lc).max() / np.abs(le).max())
+    w_err = max(float(np.abs(pe[k] - pc[k]).max() / np.abs(pe[k]).max())
+                for k in pe)
+    log(f"  {label}: 10 steps, train_and_time captured (use_scan True, "
+        f"{cap['replays']} replays) against step by step: losses "
+        f"{le[0]:.5f} -> {le[-1]:.6g}, max error {loss_err:.2e} of the "
+        f"largest loss, weights max error {w_err:.2e} of the largest (bound "
+        f"{CAPTURE_RTOL:.0e}); launches a step "
+        f"{ {k: v for k, v in per_step.items() if v} }")
+    require(len(le) == len(lc) == steps == cap["step"] == SHORT_EPOCHS + 2
+            and cap["replays"] == SHORT_EPOCHS
+            and loss_err <= CAPTURE_RTOL and w_err <= CAPTURE_RTOL,
+            f"{label}: the captured step's losses and weights agree with "
+            "the step-by-step loop's")
+
+
+@contextlib.contextmanager
+def cache_dir_env(path: str):
+    """The port's cache directory set to ``path`` in the block."""
+    saved = os.environ.get(hybrid.CACHE_DIR_ENV)
+    os.environ[hybrid.CACHE_DIR_ENV] = path
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(hybrid.CACHE_DIR_ENV, None)
+        else:
+            os.environ[hybrid.CACHE_DIR_ENV] = saved
+
+
+def run_cli(label: str, argv: list[str]) -> list[str]:
+    """``python -m gnnadvisor_osdi21_tpu_torch`` in this process: exit 0,
+    and a last line ``Time (ms): <finite, positive>`` unless it verifies.
+    Returns its output lines."""
+    buf = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    log(f"  CLI {label} ({time.perf_counter() - start:.1f} s, exit {rc}): "
+        f"{' | '.join(lines[1:])}")
+    require(rc == 0, f"CLI {label} exits 0")
+    if "--verify_spmm" not in argv:
+        ms = float(lines[-1].split("Time (ms):")[1])
+        require(math.isfinite(ms) and ms > 0,
+                f"CLI {label} ends with a time")
+    return lines
+
+
+def cli_resume(workdir: str) -> None:
+    """--save_ckpt/--resume on the 10k graph: 10 dry-run + 10 timed steps,
+    saved, then resumed for 20 more, against 10 dry-run + 30 timed steps
+    straight (both 40 steps: the timing plan runs 10 epochs as 10 windows
+    of 1, 30 as 10 of 3).  Every step runs the same kernels on the same
+    captured Adam, so the weights must agree within 1e-6 of each tensor's
+    largest value."""
+    base = ["--synthetic", "10000:120000:powerlaw", "--manual_mode", "False"]
+    ck = {n: os.path.join(workdir, f"{n}.npz")
+          for n in ("straight", "half", "resumed")}
+    run_cli("save, 30 epochs straight",
+            base + ["--num_epoches", "30", "--save_ckpt", ck["straight"]])
+    run_cli("save, 10 epochs",
+            base + ["--num_epoches", "10", "--save_ckpt", ck["half"]])
+    run_cli("resume, 10 epochs more",
+            base + ["--num_epoches", "10", "--resume", ck["half"],
+                    "--save_ckpt", ck["resumed"]])
+    tmpl = {"conv1": None, "conv2": None}
+    got = {n: load_checkpoint(p, tmpl, {"mu": tmpl, "nu": tmpl})
+           for n, p in ck.items()}
+    (p_s, o_s, step_s), (p_r, o_r, step_r) = got["straight"], got["resumed"]
+    err = max(float(np.abs(p_s[k] - p_r[k]).max() / np.abs(p_s[k]).max())
+              for k in tmpl)
+    log(f"  checkpoints: half at step {got['half'][2]}, resumed at "
+        f"{step_r} (Adam count {int(o_r['count'])}), straight at {step_s}; "
+        f"weights max error {err:.2e} of the largest (bound 1e-6)")
+    require(got["half"][2] == 20 and step_r == step_s == 40
+            and int(o_r["count"]) == int(o_s["count"]) == 40,
+            "the resumed run carries the step on to the straight run's")
+    require(err <= 1e-6, "the resumed weights equal the straight run's")
+
+
+def phase13(layouts, rm, paths) -> None:
+    """The entry points: the captured step against the step-by-step loop
+    on every path, both paths' epoch times, the headline bench twice, and
+    the CLI."""
+    log("phase 13: the captured step, the headline bench and the CLI")
+    g, head, hts = layouts[0]
+    captured_vs_eager("GCN transposed, amazon0505 scale", g, head, hts,
+                      "gcn", 16)
+    captured_vs_eager("GIN row-major, amazon0505 scale", g, head, rm["gin"],
+                      "gin", GIN_HIDDEN)
+    for method, (pg, prop, phts) in paths.items():
+        captured_vs_eager(f"GCN {method}", pg, prop, phts, "gcn", 16)
+    for name, model, hidden, tensors in (
+            ("epoch_ms", "gcn", 16, hts),
+            ("gin_epoch_ms", "gin", GIN_HIDDEN, rm["gin"])):
+        res, _ = train(g, head, tensors, epochs=TIMED_EPOCHS, dry=5,
+                       model=model, hidden=hidden, use_scan=False)
+        log_windows(f"{name} (step by step)", res)
+        log_profile(f"{name} (step by step)", res["epoch_ms"],
+                    profile_steps(g, head, tensors, model, hidden))
+
+    for run in (1, 2):
+        start = time.perf_counter()
+        rec = headline.run()
+        log(f"  headline run {run} ({time.perf_counter() - start:.1f} s): "
+            f"value {rec['value']} ms, fingerprint {rec['fingerprint']}, "
+            f"tiers diag_b {rec['diag_b']} hot_k {rec['hot_k']} res_ob "
+            f"{rec['res_ob']} res_tile {rec['res_tile']}, tier probe "
+            f"{rec['tier_probe']}; its JSON line:")
+        print(json.dumps(rec), flush=True)
+        require(rec["metric"] == headline.METRIC
+                and math.isfinite(rec["value"]) and rec["value"] > 0,
+                "the headline measures a positive time on the card")
+
+    # the CLI: GCN at amazon0505 scale is phase 9's run; the rest on the
+    # 10k graph, in an empty cache directory
+    workdir = os.path.join(hybrid._DEFAULT_CACHE_DIR,
+                           f"chip_smoke-cli-{os.getpid()}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    small = ["--synthetic", "10000:120000:powerlaw", "--manual_mode", "False"]
+    try:
+        with cache_dir_env(workdir):
+            for method in ("auto", "ell"):
+                out = run_cli(f"--verify_spmm, method {method}",
+                              small + ["--verify_spmm", "True", "--method",
+                                       method])
+                require(any("Verification PASSED" in ln for ln in out),
+                        f"verification passes on the {method} path")
+            # the first decider build with the probe at its default times
+            # the candidates; GIN's build on the same graph replays the
+            # verdict from the cache
+            probes = []
+            for label, extra in (
+                    ("--single_spmm", ["--single_spmm", "True"]),
+                    ("GIN auto, 200 epochs",
+                     ["--model", "gin", "--hidden", str(GIN_HIDDEN),
+                      "--num_epoches", "200"])):
+                out = run_cli(label, small + extra + ["--verbose_mode",
+                                                      "True"])
+                probes += [ln for ln in out if ln.startswith("# tier probe:")]
+            log(f"  tier probe of the two builds: {probes}")
+            require(len(probes) == 2
+                    and probes[0].startswith("# tier probe: timed")
+                    and probes[1] == "# tier probe: cached;"
+                    + probes[0].split(";", 1)[1],
+                    "the second build replays the first one's verdict from "
+                    "the cache (no probe)")
+            cli_resume(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
 
 def main() -> int:
@@ -2153,18 +2407,22 @@ def main() -> int:
     phase4(layouts, recs)
     gin_epoch_ms = phase5(layouts, rm, recs)
     phase6(layouts, rm, recs)
-    for phase in (lambda: phase7(recs), lambda: phase8(recs),
-                  lambda: phase9(layouts), lambda: phase10(recs),
-                  lambda: seg_vs_residual(layouts, rm),
-                  lambda: phase11(layouts, epoch_ms),
-                  lambda: phase12(layouts, epoch_ms, gin_epoch_ms)):
+    done = {}
+    for name, phase in (
+            ("7", lambda: phase7(recs)), ("8", lambda: phase8(recs)),
+            ("9", lambda: phase9(layouts)), ("10", lambda: phase10(recs)),
+            ("10b", lambda: seg_vs_residual(layouts, rm)),
+            ("11", lambda: phase11(layouts, epoch_ms)),
+            ("12", lambda: phase12(layouts, epoch_ms, gin_epoch_ms)),
+            ("13", lambda: phase13(layouts, rm, done["12"]))):
         start = time.perf_counter()
-        phase()
+        done[name] = phase()
         log(f"  phase took {time.perf_counter() - start:.1f} s")
     for rec in recs.values():
         require(rec.launches > 0, f"{rec.name} launched on its path")
     log(f"done: epoch_ms {epoch_ms:.4f} (GCN, transposed), gin_epoch_ms "
-        f"{gin_epoch_ms:.4f} (GIN, row-major) on {smi}")
+        f"{gin_epoch_ms:.4f} (GIN, row-major), both through the captured "
+        f"step, on {smi}")
     print(smi)
     print(json.dumps({"kernels": [r.as_dict() for r in recs.values()]}))
     print(json.dumps({"ok": True, "device": {

@@ -161,6 +161,12 @@ class HybridGraph:
     # than the dropped gather op's in-context ramp (DESIGN.md §8 win
     # condition; the small-graph regime where per-op ramps dominate)
     res_single: bool = False
+    # how the tier probe chose (diag_b, hot_k): "timed N layouts", "cached"
+    # (a verdict replayed from the probe cache) or "not run" (the cost
+    # model's pick, or tiers the caller fixed).  Set by _maybe_probe_tiers
+    # on the layout it returns; not a field, so that the fields stay the
+    # JAX package's
+    tier_probe = "not run"
 
     def pad_array(self, a: np.ndarray) -> np.ndarray:
         """Node-indexed array -> kernel row space (zero-pad the tail)."""
@@ -360,6 +366,52 @@ def rank_tiers(
 RES_OB_CANDIDATES = (512, 1024, 2048, 4096, 8192, 16384)
 RES_TILE_CANDIDATES = (128, 256)
 RES_TILE_STEP_NS = 179.0  # the reference's combine grid-step overhead
+
+
+def model_pipeline_ns(hg: HybridGraph) -> dict:
+    """The cost model's time of one SpMM over a BUILT layout, from its
+    exact censuses (slots include real padding, not the RESID_PAD_EST
+    estimate), term by term: the JAX package's ``model_pipeline_ns``
+    (graphs/hybrid.py:408-446 there), with its TPU v5e constants, so it
+    prices the layout as the JAX decider does, not as the card runs it."""
+    slab_cols = hg.diag_b + hg.hot_k
+    slab = hg.num_rows * (
+        SLAB_A_NS + SLAB_B_NS * slab_cols
+        + (slab_cols // 8) / HBM_BYTES_PER_NS
+    ) if slab_cols else 0.0
+    # HOT_FIX_NS is charged whenever the hot tier exists, independent of
+    # the residual branch, as in choose_tiers' cost for hot-only layouts
+    if hg.num_res_slots:
+        if hg.res_single:
+            gathers = (
+                RESID_FIX_NS - RES_STAGE2_FIX_NS
+                + GATHER_SINGLE_NS * hg.num_res_slots
+            )
+        else:
+            gathers = (
+                RESID_FIX_NS
+                + GATHER_BIG_NS * len(hg.res_gather)
+                + GATHER_SLOT_NS * hg.num_res_slots
+            )
+    else:
+        gathers = 0.0
+    if hg.hot_k:
+        gathers += HOT_FIX_NS
+    combine = (
+        RES_CELL_NS * hg.num_res_slots * hg.res_ob
+        + RES_TILE_STEP_NS * len(hg.res_t2b)
+    ) if hg.num_res_slots else 0.0
+    # the slab pass hides under the residual gather chain with a quadratic
+    # leak as the streams approach parity (choose_tiers); the combine runs
+    # after the chain
+    hi, lo = max(slab, gathers), min(slab, gathers)
+    total = (hi * (1.0 + (lo / hi) ** 2) if hi > 0 else 0.0) + combine
+    return {
+        "slab_ns": slab,
+        "gather_ns": gathers,
+        "combine_ns": combine,
+        "total_ns": total,
+    }
 
 
 def choose_res_geometry(
@@ -635,9 +687,14 @@ def _probe_cache_key(graph: GraphCSR, cands, device) -> str:
     )
 
 
+def cache_dir() -> str:
+    """The port's cache directory: ``$GNNADVISOR_TORCH_CACHE_DIR``, else
+    the git-ignored ``_cache/`` inside the package."""
+    return os.environ.get(CACHE_DIR_ENV) or _DEFAULT_CACHE_DIR
+
+
 def _probe_cache_path() -> str:
-    d = os.environ.get(CACHE_DIR_ENV) or _DEFAULT_CACHE_DIR
-    return os.path.join(d, "probe_cache.json")
+    return os.path.join(cache_dir(), "probe_cache.json")
 
 
 def _probe_cache_get(key: str):
@@ -680,7 +737,8 @@ def _maybe_probe_tiers(
     measured winner (``hg`` where probing is not warranted).  The model's
     pick is the first candidate, and a challenger must beat it by more
     than ``PROBE_MARGIN``.  Verdicts are cached (``_probe_cache_path``)
-    under the device's name and the graph's fingerprint."""
+    under the device's name and the graph's fingerprint.  The layout
+    returned records how its tiers were chosen (``tier_probe``)."""
     cands = list(ranked[:PROBE_TOP])
     if len(cands) < 2:
         return hg
@@ -697,12 +755,13 @@ def _maybe_probe_tiers(
     hit = _probe_cache_get(key)
     if hit is not None:
         b, k = int(hit[0]), int(hit[1])
-        if (b, k) == (hg.diag_b, hg.hot_k):
-            return hg
-        return build_hybrid(
-            graph, hot_k=k, diag_b=b, res_tile=res_tile, res_ob=res_ob,
-            row_align=row_align, probe=False,
-        )
+        if (b, k) != (hg.diag_b, hg.hot_k):
+            hg = build_hybrid(
+                graph, hot_k=k, diag_b=b, res_tile=res_tile, res_ob=res_ob,
+                row_align=row_align, probe=False,
+            )
+        hg.tier_probe = "cached"
+        return hg
     base_sec, best_sec, best_hg = None, None, hg
     for _, b, k in cands:
         cand = hg if (b == hg.diag_b and k == hg.hot_k) else build_hybrid(
@@ -717,6 +776,7 @@ def _maybe_probe_tiers(
     if base_sec is not None and best_sec >= base_sec * (1.0 - PROBE_MARGIN):
         best_hg = hg  # no significant measured win: trust the model
     _probe_cache_put(key, [best_hg.diag_b, best_hg.hot_k])
+    best_hg.tier_probe = f"timed {len(cands)} layouts"
     return best_hg
 
 

@@ -47,6 +47,13 @@ def load_jax_params(
         p.copy_(w)
 
 
+def jax_params(module: nn.Module) -> dict[str, np.ndarray]:
+    """The module's weights as numpy copies under their names, the JAX
+    model's parameter dict (``load_jax_params``'s inverse)."""
+    return {name: p.detach().cpu().numpy().copy()
+            for name, p in module.named_parameters()}
+
+
 class GCN(nn.Module):
     """Weights ``conv1 [in, hidden]`` and ``conv2 [hidden, classes]``, drawn
     from ``generator`` (a CPU ``torch.Generator``; seed 0 when None) and
@@ -88,3 +95,7 @@ class GCN(nn.Module):
         (as numpy arrays)."""
         load_jax_params(self, params, ("conv1", "conv2"))
         return self
+
+    def params_to_jax(self) -> dict[str, np.ndarray]:
+        """The weights as the JAX model's ``{"conv1", "conv2"}`` (numpy)."""
+        return jax_params(self)

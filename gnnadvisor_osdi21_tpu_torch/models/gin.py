@@ -19,7 +19,7 @@ from torch import nn
 
 from gnnadvisor_osdi21_tpu_torch.device import resolve_device
 from gnnadvisor_osdi21_tpu_torch.models.gcn import (
-    _uniform_weight, load_jax_params,
+    _uniform_weight, jax_params, load_jax_params,
 )
 from gnnadvisor_osdi21_tpu_torch.ops.aggregate import gin_conv, is_transposed
 from gnnadvisor_osdi21_tpu_torch.ops.graph_tensors import GraphTensors
@@ -75,3 +75,7 @@ class GIN(nn.Module):
         (as numpy arrays)."""
         load_jax_params(self, params, LAYER_NAMES)
         return self
+
+    def params_to_jax(self) -> dict[str, np.ndarray]:
+        """The weights as the JAX model's ``{"conv1".."conv5"}`` (numpy)."""
+        return jax_params(self)

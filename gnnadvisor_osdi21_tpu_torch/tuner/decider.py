@@ -235,6 +235,9 @@ class InputProperty:
                 print(f"# probe autotune: measured ({hg.diag_b},{hg.hot_k}) "
                       f"over model ({self.diag_b},{self.hot_k})")
             self.diag_b, self.hot_k = hg.diag_b, hg.hot_k
+        if self.verbose:
+            print(f"# tier probe: {hg.tier_probe}; built tiers diag_b="
+                  f"{hg.diag_b} hot_k={hg.hot_k}")
         return build_layer_tensors(
             hg, device=dev, agg_dtype=self.agg_dtype,
             transposed=self.transposed is not False,

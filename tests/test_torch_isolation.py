@@ -48,6 +48,13 @@ PORT_MODULES = [
     "gnnadvisor_osdi21_tpu_torch.graphs.reorder",
     "gnnadvisor_osdi21_tpu_torch.ops.reference",
     "gnnadvisor_osdi21_tpu_torch.ops.graph_tensors",
+    "gnnadvisor_osdi21_tpu_torch.utils.profiling",
+    "gnnadvisor_osdi21_tpu_torch.utils.checkpoint",
+    "gnnadvisor_osdi21_tpu_torch.bench.datasets",
+    "gnnadvisor_osdi21_tpu_torch.bench.headline",
+    "gnnadvisor_osdi21_tpu_torch.verification",
+    "gnnadvisor_osdi21_tpu_torch.cli",
+    "gnnadvisor_osdi21_tpu_torch.__main__",
     "chip_smoke",
     "chip_pair",
 ]

@@ -79,6 +79,7 @@ def test_probe_autotune_skipped_off_the_card(device, monkeypatch):
     assert (a.diag_b, a.hot_k, a.res_ob, a.res_tile) == (
         b.diag_b, b.hot_k, b.res_ob, b.res_tile
     )
+    assert a.tier_probe == b.tier_probe == "not run"
 
 
 def test_probe_gate_opens_for_the_card():
@@ -113,9 +114,11 @@ def test_probe_cache_roundtrip(monkeypatch, caches):
     assert (first.diag_b, first.hot_k) == want
     n_calls = len(calls)
     assert n_calls >= 2
+    assert first.tier_probe == f"timed {n_calls} layouts"
     second = build_hybrid(g, probe=True, device="cpu")
     assert (second.diag_b, second.hot_k) == want
     assert len(calls) == n_calls  # cache hit: no new probe timings
+    assert second.tier_probe == "cached" and base.tier_probe == "not run"
     path = H._probe_cache_path()
     assert path == os.path.join(str(caches / "port"), "probe_cache.json")
     with open(path) as fp:
@@ -189,6 +192,25 @@ def test_decider_applies_the_probed_tiers(monkeypatch, capsys):
     off = InputProperty(g, hidden_dim=4, probe=False).decider()
     off.build_tensors(device="cpu")
     assert (off.diag_b, off.hot_k) == model
+
+
+def test_decider_says_how_the_tiers_were_chosen(monkeypatch, capsys):
+    """The verbose decider prints the layout's ``tier_probe`` and tiers:
+    timed on the first build, replayed from the cache on the second (the
+    line the card check reads from the CLI's output)."""
+    g = _graph()
+    monkeypatch.setattr(H, "_probe_spmm_time", lambda hg, dev: 1.0)
+    lines = []
+    for _ in range(2):
+        prop = InputProperty(g, hidden_dim=4, method="hybrid", probe=True,
+                             verbose=True)
+        prop.decider().build_tensors(device="cpu")
+        lines += [ln for ln in capsys.readouterr().out.splitlines()
+                  if ln.startswith("# tier probe:")]
+    n = min(len(_ranked(g, prop.hybrid_graph.res_ob)), H.PROBE_TOP)
+    tiers = f"; built tiers diag_b={prop.diag_b} hot_k={prop.hot_k}"
+    assert lines == [f"# tier probe: timed {n} layouts" + tiers,
+                     "# tier probe: cached" + tiers]
 
 
 def test_amazon_scale_graph_is_the_one_the_card_check_expects():
