@@ -105,7 +105,21 @@ PyTorch version on the card:
   the hybrid and ELL paths (PASSED), ``--single_spmm`` (its build times
   the tier candidates), GIN for the reference's 200 epochs (its build
   replays that verdict from the cache), and ``--save_ckpt``/``--resume``
-  against a straight run.
+  against a straight run;
+- phase 14: the multi-device path (``parallel/``) at amazon0505 scale.
+  (a) One NCCL rank through ``tools/dist_check.py`` (GCN 96 -> 16 -> 22
+  on ``shard_graph_hybrid(g, 1)``): the aggregate (norm, overlap, f32 and
+  bf16), the loss and gradients against the single-card path, 10 Adam
+  steps against the single-card step's, the dist step's ms, and its
+  ``slab_matmul_t``/``residual_combine_t`` launches per step (4 a slab
+  tier, 4), the counts set to 0 just before the steps; the ELL twin.
+  (b) ``shard_graph_hybrid(g, 4)`` shard by shard: each rank's table as
+  the exchange would deliver it, its tiers on the kernels against their
+  plain composition, and the four shards against the single-card
+  aggregation (dyadic features, exact).  (c) the CLI's ``--num_devices``
+  one more than the cards exits non-zero, naming both counts.  One card
+  cannot host two NCCL ranks, so several ranks run only in the CPU tests
+  (gloo).
 
 In every training run through the captured step the hybrid kernels'
 wrappers count their launches once per eager step and once at capture; a
@@ -165,6 +179,12 @@ from gnnadvisor_osdi21_tpu_torch.train import (
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import (
     build_layer_tensors, hybrid_aggregate,
 )
+from gnnadvisor_osdi21_tpu_torch.parallel import dist_hybrid
+from gnnadvisor_osdi21_tpu_torch.parallel.dist_hybrid import local_tensors
+from gnnadvisor_osdi21_tpu_torch.parallel.hybrid_partition import (
+    shard_graph_hybrid,
+)
+from gnnadvisor_osdi21_tpu_torch.tools import dist_check
 from gnnadvisor_osdi21_tpu_torch.tuner.decider import InputProperty
 from gnnadvisor_osdi21_tpu_torch.utils import profiling
 from gnnadvisor_osdi21_tpu_torch.utils.checkpoint import load_checkpoint
@@ -2389,6 +2409,119 @@ def phase13(layouts, rm, paths) -> None:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+def shard_table(sg, r: int, x: torch.Tensor) -> torch.Tensor:
+    """Rank ``r``'s halo table [block + recv_max, ld] as the exchange
+    delivers it, built from the global rows x [ndev·block, D] by the plan
+    alone: the rank's rows, then from each sender in turn the rows that
+    the sender ships it (``send_flat``), at the receiver's offsets
+    (``halo_out_off``); the padding rows zero."""
+    block, d = sg.block, x.shape[1]
+    table = torch.zeros((block + sg.recv_max, -(-d // 8) * 8),
+                        dtype=x.dtype, device=x.device)
+    table[:block, :d] = x[r * block:(r + 1) * block]
+    for s in range(sg.num_devices):
+        n = int(sg.halo_sizes[r, s])
+        if not n:
+            continue
+        lo = int(sg.halo_in_off[s, r])
+        ids = torch.from_numpy(
+            sg.send_flat[s, lo:lo + n].astype(np.int64) + s * block)
+        out = block + int(sg.halo_out_off[s, r])
+        table[out:out + n, :d] = x[ids.to(x.device)]
+    return table
+
+
+def phase14(layouts) -> None:
+    """The multi-device path: (a) one NCCL rank through
+    ``tools.dist_check`` at amazon0505 scale, GCN 96 -> 16 -> 22; (b) the
+    4-way layout shard by shard, each rank's tiers on the halo table the
+    plan delivers, kernels against plain and the four shards against the
+    single-card aggregation; (c) the CLI's ``--num_devices 2`` on one
+    card."""
+    g, head, hts = layouts[0]
+    log("phase 14: the multi-device path (parallel/)")
+    checks, info = dist_check.run(g, dim=96, hidden=16, classes=22,
+                                  device=DEVICE, single=head.hybrid_graph,
+                                  log=log)
+    require(checks.ok, "every one-rank check holds")
+    require(info["launches_per_step"].get("slab_matmul_t", 0) > 0
+            and info["launches_per_step"].get("residual_combine_t", 0) > 0,
+            "the dist path launched slab_matmul_t and residual_combine_t")
+    log(f"  one rank, 10 Adam steps (bf16 tiers): ms per step "
+        f"{info['dist_ms']} (median, CUDA events), single-card eager step "
+        f"{info['single_ms']}; losses {info['dist_losses'][0]:.6f} -> "
+        f"{info['dist_losses'][-1]:.6f}; launches per step "
+        f"{info['launches_per_step']}")
+    if info.get("busy_ms"):
+        log(f"  profile of 3 dist steps: device busy {info['busy_ms']:.4f} "
+            f"ms per step, idle share {1 - info['busy_ms'] / info['dist_ms']:.3f}"
+            f" of the median step")
+        for key, ms, n in info["profile"]:
+            log(f"    {ms:8.4f} ms/step  x{n:<3d} {key[:100]}")
+    else:
+        log("  device busy time of the dist step: not measured (the "
+            "profiler saw no device time)")
+
+    # (b) a 4-way layout, shard by shard
+    start = time.perf_counter()
+    sg = shard_graph_hybrid(g, 4)
+    log(f"  shard_graph_hybrid(g, 4): diag_b={sg.diag_b} hot_k={sg.hot_k} "
+        f"res_ob={sg.res_ob} res_tile={sg.res_tile} block={sg.block} "
+        f"recv_max={sg.recv_max} halo rows by receiver "
+        f"{sg.halo_sizes.sum(axis=1).tolist()} "
+        f"({time.perf_counter() - start:.1f} s)")
+    require(int(sg.halo_sizes.sum()) > 0, "the 4-way layout has halo rows")
+    d = 16
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    n_pad = 4 * sg.block
+    x = torch.zeros((n_pad, d), device=DEVICE)
+    x[: g.num_nodes] = dyadic((g.num_nodes, d), torch.float32, gen)
+    # the errors' bookkeeping only: the kernels' records keep their own
+    comp = Record("residual_combine_t")
+    for dt in DTYPES:
+        name = str(dt).split(".")[-1]
+        outs = []
+        for r in range(4):
+            ht = local_tensors(sg, r, DEVICE, name)
+            table = shard_table(sg, r, x.to(dt))
+            got = dist_hybrid.shard_tiers_t(table, d, ht)
+            with plain_kernels():
+                want = dist_hybrid.shard_tiers_t(table, d, ht)
+            compare(comp, f"shard {r}/4 {name} tiers ("
+                    f"{int(sg.halo_sizes[r].sum())} halo rows) against "
+                    "their plain composition", lambda: got, lambda: want,
+                    tol=torch.zeros_like(want), tol_text="exact, dyadic "
+                    "features")
+            outs.append(got)
+        whole = hybrid_aggregate(x[: head.hybrid_graph.num_rows].t()
+                                 .contiguous().to(dt),
+                                 build_layer_tensors(head.hybrid_graph,
+                                                     device=DEVICE,
+                                                     agg_dtype=name)[0],
+                                 False)
+        joined = torch.cat(outs, dim=1)[:, : g.num_nodes]
+        compare(comp, f"the 4 shards put together ({name}) against the "
+                "single-card aggregation of the whole graph",
+                lambda: joined, lambda: whole[:, : g.num_nodes].float(),
+                tol=torch.zeros_like(joined), tol_text="exact, dyadic "
+                "features")
+        del outs, whole, joined
+
+    # (c) more ranks than cards
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    n = max(have + 1, 2)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), \
+            contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["--synthetic", "4000:40000:powerlaw", "--num_devices",
+                       str(n), "--num_epoches", "2"])
+    log(f"  CLI --num_devices {n} on {have} card(s): exit {rc}: "
+        f"{err.getvalue().strip()}")
+    require(rc != 0 and f"need {n} CUDA cards (one per rank), have {have}"
+            in err.getvalue(),
+            "the CLI refuses more ranks than cards, naming both counts")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2414,7 +2547,8 @@ def main() -> int:
             ("10b", lambda: seg_vs_residual(layouts, rm)),
             ("11", lambda: phase11(layouts, epoch_ms)),
             ("12", lambda: phase12(layouts, epoch_ms, gin_epoch_ms)),
-            ("13", lambda: phase13(layouts, rm, done["12"]))):
+            ("13", lambda: phase13(layouts, rm, done["12"])),
+            ("14", lambda: phase14(layouts))):
         start = time.perf_counter()
         done[name] = phase()
         log(f"  phase took {time.perf_counter() - start:.1f} s")

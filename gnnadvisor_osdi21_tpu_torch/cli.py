@@ -23,8 +23,14 @@ port does with them:
   (unitest.py:65-80): ``verification.py``;
 - ``--platform default`` runs on the card and fails without one;
   ``cpu`` runs the plain versions on the host;
-- ``--num_devices > 1`` exits non-zero: the multi-device path is not
-  ported (ROADMAP.md A.8).
+- ``--num_devices N > 1`` trains on N ranks (``parallel/``), spawned
+  here: NCCL with one card per rank (fewer cards than ranks exits
+  non-zero, naming both counts), or gloo on the host with ``--platform
+  cpu``.  ``--method auto|hybrid`` shards the hybrid layout
+  (``dist_hybrid``, honouring ``--diagB``, ``--hotK``, ``--agg_dtype``),
+  any other method the ELL one (``dist_ops``); 10 warm-up steps, then
+  ``--num_epoches`` timed steps, and rank 0 prints ``Time (ms):``, the
+  host's wall milliseconds per step (the step ends on the loss's fetch).
 
 Booleans are the strings 'True'/'False', as in the reference (:34-39).
 The last line is ``Time (ms): <epoch ms>`` (GNNA_main.py:202, which the
@@ -84,7 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="generate a graph: 'N:E:kind' (e.g. 410236:4878874:web)",
     )
     p.add_argument("--num_devices", type=int, default=1,
-                   help="devices (only 1: the multi-device path is not ported)")
+                   help="ranks to train on: one card each (NCCL), or host "
+                        "processes with --platform cpu (gloo)")
     p.add_argument("--diagB", type=int, default=-1,
                    help="hybrid diagonal-tier block rows (-1 = cost model, 0 = off)")
     p.add_argument("--hotK", type=int, default=-1,
@@ -148,11 +155,6 @@ def load_dataset(args):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     print(args)
-    if args.num_devices > 1:
-        print("error: --num_devices > 1: the multi-device path is not ported "
-              "yet (ROADMAP.md A.8); it does not run on one device instead",
-              file=sys.stderr)
-        return 2
     import torch
 
     from gnnadvisor_osdi21_tpu_torch.device import resolve_device
@@ -160,6 +162,15 @@ def main(argv=None) -> int:
     from gnnadvisor_osdi21_tpu_torch.tuner.decider import InputProperty
 
     device = "cpu" if args.platform == "cpu" else None
+    if args.num_devices > 1:
+        from gnnadvisor_osdi21_tpu_torch.parallel.mesh import check_cards
+
+        try:
+            check_cards(args.num_devices, device)
+        except ValueError as e:
+            print(f"error: --num_devices {args.num_devices}: {e}",
+                  file=sys.stderr)
+            return 2
     dev = resolve_device(device)
     on_host = dev.type == "cpu"
     host_note = ("# --platform cpu: Time (ms) below is the host's wall "
@@ -184,6 +195,8 @@ def main(argv=None) -> int:
         # verification checks correctness, not tier quality: no probe
         probe=False if args.verify_spmm == "True" else None,
     ).decider()
+    if args.num_devices > 1:
+        return run_multi_device(args, prop.graph, device)
     hts = prop.build_tensors(device=device)
     graph = prop.graph
 
@@ -232,6 +245,78 @@ def main(argv=None) -> int:
               f"{res['final_loss']:.4f}  step: {res['step']}")
     print(f"Time (ms): {ms:.3f}")
     return 0
+
+
+
+def run_multi_device(args, graph, device) -> int:
+    """The multi-device path (JAX cli.py:171-225): shard ``graph`` on the
+    host, spawn ``--num_devices`` ranks and train on them."""
+    from gnnadvisor_osdi21_tpu_torch.parallel.mesh import run_ranks
+
+    if args.method in ("auto", "hybrid"):
+        from gnnadvisor_osdi21_tpu_torch.parallel.hybrid_partition import (
+            shard_graph_hybrid,
+        )
+
+        # the widest aggregate the model's layers run (the sharded
+        # layout's residual gather form is fixed for all of them)
+        agg_dim = (max(args.dim, args.hidden) if args.model == "gin"
+                   else max(args.hidden, args.classes))
+        path = "hybrid"
+        sg = shard_graph_hybrid(
+            graph, num_devices=args.num_devices,
+            diag_b=None if args.diagB < 0 else args.diagB,
+            hot_k=None if args.hotK < 0 else args.hotK,
+            agg_feature_dim=agg_dim,
+        )
+    else:
+        from gnnadvisor_osdi21_tpu_torch.parallel.partition import (
+            shard_graph,
+        )
+
+        path = "ell"
+        sg = shard_graph(graph, num_devices=args.num_devices)
+    run_ranks(_train_rank, args.num_devices, device, args=(
+        path, sg, args.model, args.dim, args.hidden, graph.num_classes,
+        graph.init_embedding(args.dim, seed=args.seed),
+        graph.init_labels(graph.num_classes), args.seed, args.agg_dtype,
+        args.num_epoches,
+    ))
+    return 0
+
+
+def _train_rank(group, path, sg, model, dim, hidden, classes, x, y, seed,
+                agg_dtype, epochs) -> None:
+    """One rank of ``run_multi_device``: 10 warm-up steps, then ``epochs``
+    timed ones; rank 0 prints the milliseconds per step."""
+    import torch
+
+    from gnnadvisor_osdi21_tpu_torch.ops.aggregate import exact_f32_matmul
+    from gnnadvisor_osdi21_tpu_torch.parallel import dist_hybrid, dist_ops
+
+    if group.device.type == "cuda":
+        exact_f32_matmul()
+    if path == "hybrid":
+        step, init = dist_hybrid.make_dist_train_step(
+            group, sg, model, agg_dtype=agg_dtype)
+    else:
+        step, init = dist_ops.make_dist_train_step(group, sg, model)
+    net, opt, xb, yb = init(torch.Generator().manual_seed(seed), dim, hidden,
+                            classes, x, y)
+    for _ in range(10):
+        loss = step(net, opt, xb, yb)
+    float(loss)  # the host's fetch waits for the step
+    start = time.perf_counter()
+    for _ in range(epochs):
+        loss = step(net, opt, xb, yb)
+    float(loss)
+    ms = (time.perf_counter() - start) * 1e3 / max(epochs, 1)
+    if group.rank == 0:
+        if group.device.type == "cpu":
+            print("# --platform cpu: Time (ms) below is the host's wall "
+                  f"milliseconds per training step on {group.world} gloo "
+                  "ranks (plain versions), not a card time", flush=True)
+        print(f"Time (ms): {ms:.3f}", flush=True)
 
 
 if __name__ == "__main__":

@@ -64,18 +64,26 @@ def _ell_aggregate(x: torch.Tensor, gt: GraphTensors, norm: bool):
     sorted segment sum of the part sums into their owner nodes, the
     deterministic analog of the atomic flush (:409-413).  The ``deg[src]``
     factor is applied once per node at the end."""
-    num_parts, part_size = gt.part_cols.shape
-    d = x.shape[1]
-    chunk = max(_ELL_SCRATCH_BUDGET // (part_size * d * 4), 1)
-    part_sums = torch.cat([
-        _ell_part_sums(x, gt.part_cols[s:s + chunk], gt.part_lens[s:s + chunk],
-                       gt.degrees, norm)
-        for s in range(0, num_parts, chunk)
-    ])
-    out = _segment_sum(part_sums, gt.seg_ptr)
+    out = ell_sums(x, gt.part_cols, gt.part_lens, gt.seg_ptr, gt.degrees,
+                   norm)
     if norm:
         out = out * gt.degrees[:, None].to(out.dtype)
     return out
+
+
+def ell_sums(x, cols, lens, seg_ptr, degrees=None, norm: bool = False):
+    """Both ELL stages over parts ``cols``/``lens`` with owner offsets
+    ``seg_ptr``: the per-part masked (``norm``: degree-weighted) sums, over
+    blocks of parts within ``_ELL_SCRATCH_BUDGET``, then their sorted
+    segment sums, one row per owner."""
+    num_parts, part_size = cols.shape
+    chunk = max(_ELL_SCRATCH_BUDGET // (part_size * x.shape[1] * 4), 1)
+    part_sums = torch.cat([
+        _ell_part_sums(x, cols[s:s + chunk], lens[s:s + chunk], degrees,
+                       norm)
+        for s in range(0, num_parts, chunk)
+    ])
+    return _segment_sum(part_sums, seg_ptr)
 
 
 def _dense_aggregate(x: torch.Tensor, gt: GraphTensors, norm: bool):

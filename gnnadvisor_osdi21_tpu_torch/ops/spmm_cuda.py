@@ -206,23 +206,27 @@ def _row_table(x: torch.Tensor, width: int) -> torch.Tensor:
 
 def row_table_t(
     x_t: torch.Tensor, dtype: torch.dtype | None = None,
-    scale: torch.Tensor | None = None,
+    scale: torch.Tensor | None = None, rows: int | None = None,
 ) -> torch.Tensor:
     """x_t [D, X] as a row-major table [X, round_up(D, 8)] with zero pad
     columns, in ``dtype`` (default x_t's) and, given ``scale`` [X], times
     it per column; one pass that scales, casts and transposes together.
     ``table.t()[:D]`` is then x_t again, in the form the transposed
-    kernels read in place."""
+    kernels read in place.  ``rows`` (>= X) makes a taller table whose
+    rows past X the caller fills (their pad columns are zero here)."""
     d, n = x_t.shape
     width = _round_up(d, 8)
-    table = torch.empty((n, width), dtype=dtype or x_t.dtype,
+    rows = n if rows is None else rows
+    if rows < n:
+        raise ValueError(f"a table of {rows} rows cannot hold {n} columns")
+    table = torch.empty((rows, width), dtype=dtype or x_t.dtype,
                         device=x_t.device)
     if width > d:
         table[:, d:].zero_()
     if scale is None:
-        table[:, :d].copy_(x_t.t())
+        table[:n, :d].copy_(x_t.t())
     else:
-        torch.mul(x_t.t(), scale[:, None], out=table[:, :d])
+        torch.mul(x_t.t(), scale[:, None], out=table[:n, :d])
     return table
 
 

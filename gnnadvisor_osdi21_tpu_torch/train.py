@@ -53,6 +53,17 @@ from gnnadvisor_osdi21_tpu_torch.utils.checkpoint import (
 MODELS = {"gcn": GCN, "gin": GIN}
 
 
+def nll_per_row(
+    log_probs: torch.Tensor, labels: torch.Tensor, transposed: bool = True
+) -> torch.Tensor:
+    """Each row's negative log-likelihood of its label; log_probs is
+    ``[classes, N]`` when ``transposed``, else ``[N, classes]``."""
+    labels = labels.to(torch.int64)
+    if transposed:
+        return -log_probs.gather(0, labels[None, :])[0]
+    return -log_probs.gather(1, labels[:, None])[:, 0]
+
+
 def nll_loss(
     log_probs: torch.Tensor,
     labels: torch.Tensor,
@@ -63,11 +74,7 @@ def nll_loss(
     log_probs over the rows where ``mask`` is 1.  ``transposed``: log_probs
     is ``[classes, N]`` (the port's default layout), else ``[N,
     classes]``."""
-    labels = labels.to(torch.int64)
-    if transposed:
-        nll = -log_probs.gather(0, labels[None, :])[0]
-    else:
-        nll = -log_probs.gather(1, labels[:, None])[:, 0]
+    nll = nll_per_row(log_probs, labels, transposed)
     if mask is None:
         return nll.mean()
     return (nll * mask).sum() / mask.sum()

@@ -85,11 +85,40 @@ def test_cli_save_and_resume(tmp_path, capsys):
     assert step == 30 and int(opt["count"]) == 30
 
 
-def test_cli_refuses_several_devices(capsys):
-    rc = main(["--synthetic", "400:3000:community", "--num_devices", "2"]
-              + CPU)
-    assert rc != 0
-    assert "ROADMAP.md A.8" in capsys.readouterr().err
+SEVERAL = ["--synthetic", "400:3000:community", "--num_devices", "2",
+           "--dim", "16", "--hidden", "8", "--classes", "4", "--num_epoches",
+           "3", "--manual_mode", "False"]
+
+
+def _time_lines(out: str) -> list[str]:
+    return [line for line in out.splitlines() if line.startswith("Time (ms): ")]
+
+
+def test_cli_refuses_several_devices(capfd):
+    """Once a refusal, now the multi-device path: ``--num_devices 2
+    --platform cpu`` trains GCN on two gloo ranks (the hybrid shards under
+    ``--method auto``), and rank 0 alone prints the time."""
+    assert main(SEVERAL + CPU) == 0
+    out = capfd.readouterr().out
+    assert len(_time_lines(out)) == 1
+    assert "2 gloo ranks" in out
+
+
+def test_cli_several_devices_ell(capfd):
+    """Any method but auto and hybrid shards the ELL layout (dist_ops)."""
+    assert main(SEVERAL + ["--method", "ell", "--model", "gin"] + CPU) == 0
+    assert len(_time_lines(capfd.readouterr().out)) == 1
+
+
+def test_cli_needs_a_card_per_rank(capsys):
+    """On the default platform, more ranks than cards exits non-zero and
+    names both counts."""
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    n = max(have + 1, 2)
+    argv = SEVERAL[:3] + [str(n)] + SEVERAL[4:]
+    assert main(argv) == 2
+    assert f"need {n} CUDA cards (one per rank), have {have}" in (
+        capsys.readouterr().err)
 
 
 def test_cli_needs_a_card_without_platform_cpu():

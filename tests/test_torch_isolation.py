@@ -55,6 +55,14 @@ PORT_MODULES = [
     "gnnadvisor_osdi21_tpu_torch.verification",
     "gnnadvisor_osdi21_tpu_torch.cli",
     "gnnadvisor_osdi21_tpu_torch.__main__",
+    "gnnadvisor_osdi21_tpu_torch.parallel",
+    "gnnadvisor_osdi21_tpu_torch.parallel.mesh",
+    "gnnadvisor_osdi21_tpu_torch.parallel.partition",
+    "gnnadvisor_osdi21_tpu_torch.parallel.hybrid_partition",
+    "gnnadvisor_osdi21_tpu_torch.parallel.dist_ops",
+    "gnnadvisor_osdi21_tpu_torch.parallel.dist_hybrid",
+    "gnnadvisor_osdi21_tpu_torch.tools",
+    "gnnadvisor_osdi21_tpu_torch.tools.dist_check",
     "chip_smoke",
     "chip_pair",
 ]
