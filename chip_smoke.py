@@ -120,13 +120,43 @@ PyTorch version on the card:
   one more than the cards exits non-zero, naming both counts.  One card
   cannot host two NCCL ranks, so several ranks run only in the CPU tests
   (gloo).
+- phase 15: the one-card measurement drivers, unmodified, in this
+  process: ``bench.breakdown`` (every section, three tier configs, then
+  ``--rowmajor --only hybrid``, then the three tiers apart at diag 512 +
+  hot 512), ``bench.levers --quick``,
+  ``bench.splitprobe`` and ``bench.bench_spmm --quick``, each on the
+  amazon0505-scale graph reordered anew (each prints its fingerprint and
+  tiers).  Each exits 0 and checks itself: breakdown's tiers (diag + hot
+  + residual) add up to its whole aggregation exactly on all-ones x,
+  splitprobe's 2- and 4-way residual launches give the stock ``sag``
+  bitwise, and bench_spmm's hybrid arm equals its COO arm.  Their hybrid
+  kernel launches go to the ``kernels`` line as ``driver_launches``, apart
+  from the main path's ``launches``, and each of the six hybrid kernels
+  must have some;
+- phase 16: the roster drivers and the baselines.  (a) Every hybrid
+  kernel against its plain version at the roster GIN's input widths D in
+  {50, 128, 500, 1323}, on the 10k graph at (diag 512, hot 512) with a
+  residual, f32 and bf16: integer features exactly (the residual also
+  with an addend), random f32 features within 1e-4 + n·2^-24·(A·|x|).
+  (b) ``bench.verify_all --quick`` (3 graphs x 2 dtypes, CLI processes).
+  (c) ``bench.campaign --quick --only roster`` into a scratch log
+  directory under ``chiprun_out/``: 6 rows in ``roster.csv``, and
+  ``bench.roster2md`` prints them.  (d) ``baselines.naive`` and
+  ``baselines.torch_baseline`` on pubmed, GCN and GIN, from the tuned
+  model's weights: their first-step loss equals the tuned model's (f32
+  aggregation) within BASELINE_RTOL, and their first forward's
+  log-probabilities equal its, node by node and class by class, within
+  1e-4 + n·2^-24 of the row's scale (``log_prob_tol``); then 5 timed
+  epochs.
 
 In every training run through the captured step the hybrid kernels'
 wrappers count their launches once per eager step and once at capture; a
 replay runs the captured kernels without passing a wrapper.  The checks
 count kernel runs (the wrappers' counts plus the captured step's launches
 for each further replay); the ``kernels`` line reports the wrappers'
-counts of the main path's run (phases 3 and 5).
+counts of the main path's run (phases 3-6; phase 8 for the probe
+kernels) as ``launches``, and those of the measurement drivers (phase 15)
+as ``driver_launches``.
 
 The layouts of phases 2-6 are built with the probe off, so that they are
 the cost model's.  Every check raises on failure, so the exit code is
@@ -154,9 +184,12 @@ import numpy as np
 import torch
 
 from gnnadvisor_osdi21_tpu_torch import cli
+from gnnadvisor_osdi21_tpu_torch.baselines import naive, torch_baseline
 from gnnadvisor_osdi21_tpu_torch.bench import (
-    fixprobe, fmtprobe, headline, stepprobe,
+    bench_spmm, breakdown, campaign, fixprobe, fmtprobe, headline, levers,
+    roster2md, splitprobe, stepprobe, verify_all,
 )
+from gnnadvisor_osdi21_tpu_torch.bench.datasets import DATASETS, get_dataset
 from gnnadvisor_osdi21_tpu_torch.graphs import hybrid
 from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import (
     build_residual_stream, pack_slab_bits, pack_slab_bits_t,
@@ -173,11 +206,11 @@ from gnnadvisor_osdi21_tpu_torch.ops.aggregate import (
     aggregate, exact_f32_matmul, is_transposed,
 )
 from gnnadvisor_osdi21_tpu_torch.train import (
-    MODELS, make_captured_step, make_optimizer, make_train_step, nll_loss,
-    train_and_time,
+    MODELS, build_model, make_captured_step, make_optimizer, make_train_step,
+    nll_loss, train_and_time,
 )
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import (
-    build_layer_tensors, hybrid_aggregate,
+    build_hybrid_tensors, build_layer_tensors, hybrid_aggregate,
 )
 from gnnadvisor_osdi21_tpu_torch.parallel import dist_hybrid
 from gnnadvisor_osdi21_tpu_torch.parallel.dist_hybrid import local_tensors
@@ -291,6 +324,17 @@ AMAZON_CLI = ["--synthetic", "410236:4878874:web", "--manual_mode", "False",
 # same Adam: the same kernels on the same inputs, so f32 rounding at most
 # (the kernels and reductions are deterministic)
 CAPTURE_RTOL = 1e-6
+# phase 15: breakdown's (diag_b, hot_k) sweep (the headline's diagonal
+# block alone, the cost model's hot-4096 layout, both slabs fused)
+BREAKDOWN_TIERS = "512:0,0:4096,512:512"
+# phase 16: the roster GIN's input widths that no earlier phase runs (ppi,
+# soc-BlogCatalog, pubmed, TWITTER-Real-Graph-Partial): GIN aggregates
+# before its GEMM, so its first layer aggregates at the input width
+ROSTER_DIMS = (50, 128, 500, 1323)
+# the baselines' first-step loss against the tuned model's, f32
+# aggregation: the same sums in other orders
+BASELINE_RTOL = 1e-4
+BASELINE_DATASET = "pubmed"
 
 T0 = time.perf_counter()
 
@@ -358,7 +402,8 @@ class Record:
     def __init__(self, name: str):
         self.name = name
         self.max_abs_err = 0.0
-        self.launches = 0
+        self.launches = 0  # the main path's (phases 3-6, and 8 for probes)
+        self.driver_launches = 0  # the measurement drivers' (phase 15)
         self.ms = self.plain_ms = self.bound_ms = self.library_ms = None
         self.bound_by = "bytes"
 
@@ -366,6 +411,7 @@ class Record:
         return {
             "name": self.name, "route": "cuda", "source": SOURCES[self.name],
             "replaces": REPLACES[self.name], "launches": self.launches,
+            "driver_launches": self.driver_launches,
             "max_abs_err": self.max_abs_err, "ms": self.ms,
             "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
             "bound_by": self.bound_by, "library_ms": self.library_ms,
@@ -415,14 +461,29 @@ def as_table(x_t: torch.Tensor) -> torch.Tensor:
     return spmm_cuda.row_table_t(x_t).t()[: x_t.shape[0]]
 
 
+def int_features(shape, dtype, gen: torch.Generator) -> torch.Tensor:
+    """Integer features in [-4, 4]: every partial sum exact in f32."""
+    return torch.randint(-4, 5, shape, generator=gen, device=DEVICE).to(dtype)
+
+
 def slab_case(n: int, d: int, dtype, gen: torch.Generator):
     """Features of a row-major slab check at width ``d`` and its tolerance
     (None: ATOL + RTOL·|plain|): integers and an exact match at the wide
     widths (see WIDE_DIMS)."""
     if d not in WIDE_DIMS:
         return row_features(n, d, dtype, gen), None, ""
-    x = torch.randint(-4, 5, (n, d), generator=gen, device=DEVICE)
-    return x.to(dtype), 0.0, "exact, integer features"
+    return int_features((n, d), dtype, gen), 0.0, "exact, integer features"
+
+
+ORDER_TOL_TEXT = "1e-4 + n·2^-24·(A·|x|), n the row's set bits"
+
+
+def order_tol(plain, x: torch.Tensor) -> torch.Tensor:
+    """The bound of two f32 summation orders over a row's n set bits,
+    1e-4 + n·2^-24·(A·|x|), where ``plain(y)`` is the plain version's A·y
+    for row-major y [R, D] (in either output orientation)."""
+    count = plain(torch.ones((x.shape[0], 1), device=DEVICE))
+    return ATOL + count * 2.0 ** -24 * plain(x.abs())
 
 
 def hard_words(kind: str, r: int, w32: int, rng) -> np.ndarray:
@@ -851,16 +912,14 @@ def phase2_rowmajor(layouts, rm, recs) -> None:
                         tol, tol_text)
         # the wide tables with random f32 features too, within the bound of
         # two f32 summation orders over the row's n set bits
-        count = spmm_cuda.slab_matmul_plain(
-            bits, torch.ones((n, 1), device=DEVICE), block)
         for d in WIDE_DIMS:
             x = row_features(n, d, torch.float32, gen)
-            tol = ATOL + count * 2.0 ** -24 * spmm_cuda.slab_matmul_plain(
-                bits, x.abs(), block)
+            tol = order_tol(
+                lambda y: spmm_cuda.slab_matmul_plain(bits, y, block), x)
             compare(rec, f"slab_matmul {label} D={d} float32 random",
                     lambda: spmm_cuda.slab_matmul(bits, x, block),
                     lambda: spmm_cuda.slab_matmul_plain(bits, x, block), tol,
-                    "1e-4 + n·2^-24·(A·|x|), n the row's set bits")
+                    ORDER_TOL_TEXT)
             del tol
     # timed at the main path's hidden aggregations (hot, D=64, bf16)
     bits = ht.hot_bits
@@ -2522,6 +2581,282 @@ def phase14(layouts) -> None:
             "the CLI refuses more ranks than cards, naming both counts")
 
 
+def run_driver(label: str, main_fn, argv: list[str], recs) -> list[str]:
+    """A driver's ``main(argv)`` in this process: exit 0.  Its hybrid
+    kernel launches (counts set to 0 just before it, read just after) go
+    to the kernels' ``driver_launches``, apart from the main path's
+    ``launches``.  Returns its output lines, which are also printed."""
+    spmm_cuda.reset_launches()
+    buf = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    lines = buf.getvalue().splitlines()
+    counts = {k: v for k, v in spmm_cuda.launches.items() if v}
+    log(f"  {label} ({time.perf_counter() - start:.1f} s, exit {rc}), "
+        f"launches {counts}:")
+    for line in lines:
+        print(f"    | {line}", flush=True)
+    require(rc == 0, f"{label} exits 0")
+    for name, n in counts.items():
+        recs[name].driver_launches += n
+    return lines
+
+
+def phase15(recs) -> None:
+    """The one-card measurement drivers, unmodified, in this process:
+    breakdown (every section, the row-major pipeline, the three tiers
+    apart at diag 512 + hot 512), levers --quick, splitprobe and
+    bench_spmm --quick.  Each checks itself
+    (exit 1 on a mismatch): breakdown's tiers add up to its whole
+    aggregation, splitprobe's splits equal the stock ``sag`` bitwise, and
+    bench_spmm's hybrid arm equals its COO arm; here the lines that say
+    so must be there."""
+    log("phase 15: the one-card measurement drivers")
+    out = run_driver("breakdown", breakdown.main,
+                     ["--iters", "10", "--tiers", BREAKDOWN_TIERS], recs)
+    require(any("against the whole: exact" in ln for ln in out),
+            "breakdown's tiers add up to its whole aggregation")
+    require(sum(ln.startswith("diag_b=") for ln in out) == 3,
+            "breakdown timed its three tier configs")
+    run_driver("breakdown --rowmajor --only hybrid", breakdown.main,
+               ["--iters", "10", "--rowmajor", "--only", "hybrid"], recs)
+    # the probed layout has had no hot tier so far: each of the three
+    # tiers timed apart at fixed tiers
+    out = run_driver("breakdown, diag 512 + hot 512", breakdown.main,
+                     ["--iters", "10", "--diagb", "512", "--hotk", "512",
+                      "--only", "hybrid,diag,hot,res"], recs)
+    require("tiers diag+hot+res against the whole: exact" in out,
+            "breakdown's three tiers add up to its whole aggregation")
+    out = run_driver("levers --quick", levers.main, ["--quick"], recs)
+    require(any(ln.startswith("# BEST:") for ln in out),
+            "levers reports its best config")
+    out = run_driver("splitprobe", splitprobe.main, [], recs)
+    require(sum("bitwise equal to the stock sag" in ln for ln in out) == 2,
+            "splitprobe's 2- and 4-way splits equal the stock sag")
+    out = run_driver("bench_spmm --quick", bench_spmm.main, ["--quick"], recs)
+    rows = [ln for ln in out if ln and not ln.startswith(("#", "dataset,"))]
+    require(len(rows) == 1 and rows[0].startswith("amazon0505,"),
+            "bench_spmm prints its quick row")
+    for name in spmm_cuda.KERNELS:
+        require(recs[name].driver_launches > 0,
+                f"{name} launched by the measurement drivers")
+
+
+class _Plain:
+    """The hybrid kernels' plain versions under the wrappers' names."""
+
+    def __getattr__(self, name):
+        return getattr(spmm_cuda, f"{name}_plain")
+
+
+PLAIN = _Plain()
+
+
+def wide_kernels(g10, recs) -> None:
+    """Every hybrid kernel against its plain version at the roster's GIN
+    input widths, on the 10k graph with all three tiers (diag 512, hot
+    512, residual), at f32 and bf16: integer features exactly (with and
+    without the residual's addend), and random f32 features within
+    ``order_tol``.  Phase 2's checks at amazon0505 scale cannot take these
+    widths: the residual's plain version holds a [tiles, OB·D] product."""
+    hg = hybrid.build_hybrid(g10, diag_b=512, hot_k=512)
+    require(hg.num_res_slots > 0, "the 10k (512, 512) layout has a residual")
+    tt = build_hybrid_tensors(hg, device=DEVICE, transposed=True)
+    tr = build_hybrid_tensors(hg, device=DEVICE, transposed=False)
+    r, b = hg.num_rows, hg.diag_b
+    res_t = (tt.res_src, tt.res_mask_s, tt.res_t2b, tt.res_block_ptr, r,
+             hg.res_ob)
+    res_r = (tr.res_src, tr.res_mask, tr.res_t2b, tr.res_block_ptr, r,
+             hg.res_ob)
+
+    def views(x):
+        """x [R, D] as each pipeline hands it over: (x, x_hot, x_t,
+        x_hot_t), the transposed ones as views of padded tables."""
+        xh = x.index_select(0, tr.hot_ids)
+        return (x, xh, as_table(x.t().contiguous()),
+                as_table(xh.t().contiguous()))
+
+    def t(a):  # a row-major addend in the transposed orientation
+        return None if a is None else a.t().contiguous()
+
+    # (kernel, label, call(m, x, addend)) on row-major x [R, D], through
+    # ``m``: ``spmm_cuda`` (the kernels) or ``PLAIN`` (their plain versions)
+    kernels = [
+        ("slab_matmul_t", "diag", lambda m, x, a: m.slab_matmul_t(
+            tt.diag_bits, views(x)[2], b)),
+        ("slab_matmul_t", "hot", lambda m, x, a: m.slab_matmul_t(
+            tt.hot_bits, views(x)[3])),
+        ("fused_slab_matmul_t", "diag+hot", lambda m, x, a:
+            m.fused_slab_matmul_t(tt.diag_bits, tt.hot_bits,
+                                  *views(x)[2:], b)),
+        ("residual_combine_t", "", lambda m, x, a: m.residual_combine_t(
+            views(x)[2], *res_t, addend=t(a))),
+        ("slab_matmul", "diag", lambda m, x, a: m.slab_matmul(
+            tr.diag_bits, x, b)),
+        ("slab_matmul", "hot", lambda m, x, a: m.slab_matmul(
+            tr.hot_bits, views(x)[1])),
+        ("fused_slab_matmul", "diag+hot", lambda m, x, a:
+            m.fused_slab_matmul(tr.diag_bits, tr.hot_bits,
+                                *views(x)[:2], b)),
+        ("residual_combine", "", lambda m, x, a: m.residual_combine(
+            x, *res_r, addend=a)),
+    ]
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    for d in ROSTER_DIMS:
+        for dt in DTYPES:
+            x = int_features((r, d), dt, gen)
+            h = int_features((r, d), torch.float32, gen)
+            for name, label, call in kernels:
+                for add in ((None, h) if name.startswith("residual")
+                            else (None,)):
+                    compare(recs[name], f"{name} {label} D={d} {dt} integer"
+                            f"{'' if add is None else ' + addend'}",
+                            lambda: call(spmm_cuda, x, add),
+                            lambda: call(PLAIN, x, add),
+                            0.0, "exact, integer features")
+        x = torch.randn((r, d), generator=gen, device=DEVICE)
+        for name, label, call in kernels:
+            tol = order_tol(lambda y: call(PLAIN, y, None), x)
+            compare(recs[name], f"{name} {label} D={d} float32 random",
+                    lambda: call(spmm_cuda, x, None),
+                    lambda: call(PLAIN, x, None), tol, ORDER_TOL_TEXT)
+            del tol
+
+
+def first_forward(prop, g, model: str, hidden: int):
+    """The tuned model's first-step loss on ``g`` (f32 aggregation), its
+    log-probabilities [N, classes] on the card, and its initial weights
+    (numpy, one per layer)."""
+    hts = prop.build_tensors(device=DEVICE)
+    transposed = is_transposed(hts[0])
+    dim, classes = g.num_features, g.num_classes
+    net = build_model(model, torch.Generator().manual_seed(0), dim, hidden,
+                      classes, device=DEVICE)
+    x = prop.pad_features(g.init_embedding(dim))
+    x = torch.from_numpy(x.T.copy() if transposed else x).to(DEVICE)
+    y = torch.from_numpy(prop.pad_features(g.init_labels(classes))).to(DEVICE)
+    mask = torch.from_numpy(row_mask(prop)).to(DEVICE)
+    with torch.no_grad():
+        lp = net(x, hts)
+        loss = float(nll_loss(lp, y, mask, transposed))
+    lp = (lp.t() if transposed else lp)[: g.num_nodes]
+    return loss, lp, [p.detach().cpu().numpy() for p in net.parameters()]
+
+
+def log_prob_tol(g, model: str, weights, lp: torch.Tensor) -> torch.Tensor:
+    """Per-node bound [N, 1] on the gap between two f32 evaluations of the
+    first forward's log-probabilities that sum in other orders: 1e-4 +
+    n·2^-24·s, n = Σ over layers of k_in + dmax + 4 (a GEMM's k_in
+    products, at most dmax edge terms, each scaled and split over up to
+    three tiers) and s the row's largest |logit| or |log-probability|
+    (``lp``): the kernels' bound (``order_tol``) with the row's scale for
+    the magnitudes.  The worst-case form, n·2^-24 times the forward on |x|
+    and |W|, grows with the weights' cancellation to hundreds on pubmed
+    and would hold nothing."""
+    src, dst, deg, offsets = naive.graph_tensors(g, DEVICE)
+    dmax = int(np.diff(np.asarray(g.row_pointers)).max())
+    z = torch.from_numpy(g.init_embedding(g.num_features)).to(DEVICE)
+    n = 0
+    for i, w in enumerate(weights):
+        w = torch.from_numpy(np.asarray(w, np.float32)).to(DEVICE)
+        n += w.shape[0] + dmax + 4
+        z = (naive.gcn_layer(z, w, src, dst, deg, offsets) if model == "gcn"
+             else naive.gin_layer(z, w, dst, offsets))
+        if i < len(weights) - 1:
+            z = torch.relu(z)
+    scale = torch.maximum(z.abs().amax(1, keepdim=True),
+                          lp.abs().amax(1, keepdim=True))
+    return ATOL + n * 2.0 ** -24 * scale
+
+
+def baseline_oracle() -> None:
+    """Phase 16(d): ``baselines.naive`` and ``baselines.torch_baseline`` on
+    pubmed, GCN and GIN, from the tuned model's weights: the first-step
+    loss within BASELINE_RTOL of the tuned model's, and the first
+    forward's log-probabilities within ``log_prob_tol`` of its, node by
+    node; then each baseline's ms a step over 5 epochs."""
+    start = time.perf_counter()
+    name = BASELINE_DATASET
+    _, _, dim, classes, _, _ = DATASETS[name]
+    g = get_dataset(name, dim=dim, classes=classes)
+    for model, hidden in (("gcn", 16), ("gin", GIN_HIDDEN)):
+        prop = InputProperty(g, hidden_dim=hidden, model=model,
+                             agg_dtype="float32", probe=False).decider()
+        want, want_lp, weights = first_forward(prop, g, model, hidden)
+        require(not prop.reorder_status, "the tuned model keeps node order")
+        for label, stack in (("naive", naive), ("torch", torch_baseline)):
+            stats = {}
+            ms = stack.run(name, model, 5, DEVICE, weights, stats)
+            rel = abs(stats["first_loss"] - want) / abs(want)
+            got_lp = stats["log_probs"]
+            gap = (got_lp - want_lp).abs()
+            tol = log_prob_tol(g, model, weights, want_lp)
+            ok = (got_lp.shape == want_lp.shape
+                  and bool(torch.isfinite(want_lp).all())
+                  and bool((gap <= tol).all()))
+            log(f"  (d) {label} {model.upper()} on {name}: first loss "
+                f"{stats['first_loss']:.6f} against the tuned "
+                f"{prop.layer_input.method} model's {want:.6f} (rel "
+                f"{rel:.2e}, bound {BASELINE_RTOL:g}); per-node "
+                f"log-probabilities {tuple(got_lp.shape)}: max gap "
+                f"{float(gap.max()):.3e}, at most "
+                f"{float((gap / tol).max()):.3e} of its bound, 1e-4 + "
+                "n·2^-24 of the row's scale (largest bound "
+                f"{float(tol.max()):.3e}); {ms:.3f} ms a step (5 epochs)")
+            require(math.isfinite(want) and rel <= BASELINE_RTOL,
+                    f"the {label} baseline's first {model} loss equals the "
+                    "tuned model's")
+            require(ok, f"the {label} baseline's first {model} "
+                    "log-probabilities equal the tuned model's, node by "
+                    "node, within 1e-4 + n·2^-24 of the row's scale")
+    log(f"  (d) baselines: {time.perf_counter() - start:.1f} s")
+
+
+def phase16(layouts, recs) -> None:
+    """The roster drivers and the baselines: (a) the hybrid kernels at the
+    roster GIN's input widths; (b) ``verify_all --quick``; (c) the quick
+    roster campaign into a scratch log directory, its assembly and
+    ``roster2md``; (d) ``baseline_oracle``."""
+    log("phase 16: the roster drivers and the baselines")
+    start = time.perf_counter()
+    wide_kernels(layouts[2][0], recs)
+    log(f"  (a) the kernels at D in {ROSTER_DIMS}: "
+        f"{time.perf_counter() - start:.1f} s")
+
+    start = time.perf_counter()
+    rc = verify_all.main(["--quick"])
+    log(f"  (b) verify_all --quick: exit {rc} "
+        f"({time.perf_counter() - start:.1f} s)")
+    require(rc == 0, "verify_all --quick passes on every graph and dtype")
+
+    start = time.perf_counter()
+    log_dir = os.path.join("chiprun_out", f"chip_smoke-campaign-{os.getpid()}")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    try:
+        rc = campaign.main(["--quick", "--only", "roster", "--log_dir",
+                            log_dir])
+        with open(os.path.join(log_dir, "roster.csv")) as fp:
+            roster = fp.read().splitlines()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            roster2md.main([log_dir])
+        table = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith("| GCN") or ln.startswith("| GIN")]
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    log(f"  (c) campaign --quick --only roster: exit {rc} "
+        f"({time.perf_counter() - start:.1f} s); roster.csv:")
+    for line in roster:
+        print(f"    | {line}", flush=True)
+    for line in table:
+        print(f"    | {line}", flush=True)
+    require(rc == 0 and len(roster) == 7 and len(table) == 6,
+            "the quick roster assembles 6 rows, and roster2md prints them")
+
+    baseline_oracle()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2548,7 +2883,9 @@ def main() -> int:
             ("11", lambda: phase11(layouts, epoch_ms)),
             ("12", lambda: phase12(layouts, epoch_ms, gin_epoch_ms)),
             ("13", lambda: phase13(layouts, rm, done["12"])),
-            ("14", lambda: phase14(layouts))):
+            ("14", lambda: phase14(layouts)),
+            ("15", lambda: phase15(recs)),
+            ("16", lambda: phase16(layouts, recs))):
         start = time.perf_counter()
         done[name] = phase()
         log(f"  phase took {time.perf_counter() - start:.1f} s")

@@ -22,6 +22,10 @@ speedup over it.  ``gather_ceiling_ms``: ``index_select`` of a bf16 [16,
 R] table over every edge's column, one row gather per edge, what a
 per-edge formulation costs at least on this card.
 
+Before it builds anything, ``main`` stops a running measurement campaign
+(``_quiesce_campaign``, by the campaign's pidfile) and waits for its
+in-flight run, so that the card is the headline's alone.
+
 Prints ONE JSON line with the reference's keys, except ``modeled_ms`` and
 ``fraction_of_achievable``: they divide by the JAX package's cost model,
 fitted to a TPU v5e (ROADMAP.md: they return with an H100 fit, A.7c).  It
@@ -37,8 +41,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import signal
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -74,6 +81,64 @@ def power_limit_w() -> float | None:
         return float(out.split()[0])
     except (OSError, subprocess.SubprocessError, ValueError, IndexError):
         return None
+
+
+def _stat(pid: int) -> list[str] | None:
+    """The fields of ``/proc/<pid>/stat`` after the command name (state,
+    parent PID, ..., start time at index 19); None once it is gone."""
+    try:
+        with open(f"/proc/{pid}/stat") as fp:
+            return fp.read().rsplit(")", 1)[1].split()
+    except (OSError, IndexError):
+        return None
+
+
+def _running(pid: int, start: str) -> bool:
+    """Whether the process with ``pid`` and start time ``start`` still runs
+    (a zombie has ended; another start time is a recycled PID)."""
+    fields = _stat(pid)
+    return fields is not None and fields[0] != "Z" and fields[19] == start
+
+
+def _quiesce_campaign(max_wait_s: float = 900.0) -> None:
+    """If a measurement campaign is running (``bench/campaign.py`` or
+    ``bench/baseline_campaign.py``), stop it and wait for its in-flight
+    config to drain, so that the headline has the card to itself (the JAX
+    package's root ``bench.py:27-60``).  Kills only the PID recorded in
+    the campaign's pidfile, and only when that process's command line
+    names ``campaign``: a stale pidfile or a recycled PID is left alone.
+    The running config is left to finish (its log stays valid for the
+    campaign's resume); the wait is for that driver and its own children
+    only, never for other processes on the machine."""
+    from gnnadvisor_osdi21_tpu_torch.bench.campaign import pidfile
+
+    try:
+        with open(pidfile()) as fp:
+            pid = int(fp.read().split(":")[-1].strip())
+    except (OSError, ValueError):
+        return
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as fp:
+            cmdline = fp.read().replace(b"\0", b" ").decode(errors="replace")
+    except OSError:
+        return  # stale pidfile: the campaign is gone
+    if "campaign" not in cmdline:
+        return  # the PID was recycled by an unrelated process
+    # the driver and its children, each with its start time, taken before
+    # the signal: once the driver ends, its children get another parent
+    procs = []
+    for ent in os.listdir("/proc"):
+        fields = _stat(int(ent)) if ent.isdigit() else None
+        if fields is not None and (int(ent) == pid or int(fields[1]) == pid):
+            procs.append((int(ent), fields[19]))
+    try:
+        os.kill(pid, signal.SIGTERM)
+        print(f"headline: stopped campaign driver pid {pid}", file=sys.stderr)
+    except ProcessLookupError:
+        pass
+    deadline = time.time() + max_wait_s
+    while time.time() < deadline and any(_running(*p) for p in procs):
+        time.sleep(1.0)
 
 
 def run(device=None, nodes: int = 0, iters: int = 200) -> dict:
@@ -148,6 +213,7 @@ def main(argv=None) -> int:
     p.add_argument("--iters", type=int, default=200,
                    help="chained SpMM calls of the fit's first point")
     args = p.parse_args(argv)
+    _quiesce_campaign()
     print(json.dumps(run(args.device, args.nodes, args.iters)), flush=True)
     return 0
 

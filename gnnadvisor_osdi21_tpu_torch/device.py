@@ -15,3 +15,24 @@ def resolve_device(device=None) -> torch.device:
             "passes device='cpu'"
         )
     return dev
+
+
+def card_description(device=None) -> str:
+    """Where ``device`` runs, for a record: ``cpu``, or the card's name and
+    power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them (the card's name alone where
+    ``nvidia-smi`` cannot say)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev.type
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=30,
+        ).stdout.splitlines()
+        return out[dev.index or 0].strip()
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return torch.cuda.get_device_name(dev)

@@ -157,30 +157,38 @@ def build_layer_tensors(
     return ht, ht
 
 
+def slab_tiers_t(table: torch.Tensor, d: int,
+                 ht: HybridTensors) -> torch.Tensor | None:
+    """The slab tiers' sum ([D, R] f32, no degree scaling; None when the
+    layout has no slab tier) over x given as its row-major table [R, Dp]
+    (``spmm_cuda.row_table_t``): every tier reads ``table.t()[:d]``, x_t
+    itself, in place, and both slab tiers run as one fused launch where
+    both exist."""
+    x_t = table.t()[:d]
+    x_hot_t = table.index_select(0, ht.hot_ids).t()[:d] if ht.hot_k else None
+    if ht.diag_b and ht.hot_k:
+        return spmm_cuda.fused_slab_matmul_t(
+            ht.diag_bits, ht.hot_bits, x_t, x_hot_t, ht.diag_b
+        )
+    out = None
+    if ht.diag_b:
+        out = spmm_cuda.slab_matmul_t(
+            ht.diag_bits, x_t, table_block_cols=ht.diag_b
+        )
+    if ht.hot_k:
+        h = spmm_cuda.slab_matmul_t(ht.hot_bits, x_hot_t)
+        out = h if out is None else out + h
+    return out
+
+
 def _tiers_transposed(table: torch.Tensor, d: int,
                       ht: HybridTensors) -> torch.Tensor:
     """Sum of the tiers ([D, R] out, no degree scaling) over x given as its
-    row-major table [R, Dp] (``spmm_cuda.row_table_t``): every tier reads
-    ``table.t()[:d]``, x_t itself, in place; both slab tiers run as one
-    fused launch where both exist, and the residual kernel adds their sum
-    to its own (no separate ``out + r``)."""
-    x_t = table.t()[:d]
-    x_hot_t = table.index_select(0, ht.hot_ids).t()[:d] if ht.hot_k else None
-    out = None
-    if ht.diag_b and ht.hot_k:
-        out = spmm_cuda.fused_slab_matmul_t(
-            ht.diag_bits, ht.hot_bits, x_t, x_hot_t, ht.diag_b
-        )
-    else:
-        if ht.diag_b:
-            out = spmm_cuda.slab_matmul_t(
-                ht.diag_bits, x_t, table_block_cols=ht.diag_b
-            )
-        if ht.hot_k:
-            h = spmm_cuda.slab_matmul_t(ht.hot_bits, x_hot_t)
-            out = h if out is None else out + h
+    row-major table (``slab_tiers_t``); the residual kernel adds the slab
+    tiers' sum to its own (no separate ``out + r``)."""
+    out = slab_tiers_t(table, d, ht)
     if ht.res_t2b is not None:
-        out = residual_tier_t(x_t, ht, addend=out)
+        out = residual_tier_t(table.t()[:d], ht, addend=out)
     if out is None:
         out = torch.zeros((d, table.shape[0]), dtype=torch.float32,
                           device=table.device)
@@ -202,6 +210,19 @@ def residual_tier_t(
     )
 
 
+def diag_tier(x: torch.Tensor, ht: HybridTensors) -> torch.Tensor:
+    """Row-major diagonal tier alone ([R, D] in, [R, D] f32 out): one slab
+    pass with the block-local table (the JAX package's
+    ``_diag_aggregate``, hybrid_agg.py:180-207)."""
+    return spmm_cuda.slab_matmul(ht.diag_bits, x, table_block_rows=ht.diag_b)
+
+
+def hot_tier(x: torch.Tensor, ht: HybridTensors) -> torch.Tensor:
+    """Row-major hot tier alone: the slab times the gathered hot-node
+    rows (the JAX package's ``_hot_aggregate``, hybrid_agg.py:210-228)."""
+    return spmm_cuda.slab_matmul(ht.hot_bits, x.index_select(0, ht.hot_ids))
+
+
 def _tiers_rowmajor(x: torch.Tensor, ht: HybridTensors) -> torch.Tensor:
     """Sum of the tiers ([R, D] in and out, no degree scaling); both slab
     tiers run as one fused launch, and the residual kernel adds their sum
@@ -214,12 +235,9 @@ def _tiers_rowmajor(x: torch.Tensor, ht: HybridTensors) -> torch.Tensor:
         )
     else:
         if ht.diag_b:
-            out = spmm_cuda.slab_matmul(
-                ht.diag_bits, x, table_block_rows=ht.diag_b
-            )
+            out = diag_tier(x, ht)
         if ht.hot_k:
-            x_hot = x.index_select(0, ht.hot_ids)
-            h = spmm_cuda.slab_matmul(ht.hot_bits, x_hot)
+            h = hot_tier(x, ht)
             out = h if out is None else out + h
     if ht.res_t2b is not None:
         out = residual_tier(x, ht, addend=out)

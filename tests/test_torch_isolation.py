@@ -63,6 +63,21 @@ PORT_MODULES = [
     "gnnadvisor_osdi21_tpu_torch.parallel.dist_hybrid",
     "gnnadvisor_osdi21_tpu_torch.tools",
     "gnnadvisor_osdi21_tpu_torch.tools.dist_check",
+    "gnnadvisor_osdi21_tpu_torch.bench.breakdown",
+    "gnnadvisor_osdi21_tpu_torch.bench.levers",
+    "gnnadvisor_osdi21_tpu_torch.bench.bench_spmm",
+    "gnnadvisor_osdi21_tpu_torch.bench.splitprobe",
+    "gnnadvisor_osdi21_tpu_torch.bench.log2csv",
+    "gnnadvisor_osdi21_tpu_torch.bench.study2csv",
+    "gnnadvisor_osdi21_tpu_torch.bench.bench_models",
+    "gnnadvisor_osdi21_tpu_torch.bench.verify_all",
+    "gnnadvisor_osdi21_tpu_torch.bench.studies",
+    "gnnadvisor_osdi21_tpu_torch.bench.campaign",
+    "gnnadvisor_osdi21_tpu_torch.bench.roster2md",
+    "gnnadvisor_osdi21_tpu_torch.bench.baseline_campaign",
+    "gnnadvisor_osdi21_tpu_torch.baselines",
+    "gnnadvisor_osdi21_tpu_torch.baselines.naive",
+    "gnnadvisor_osdi21_tpu_torch.baselines.torch_baseline",
     "chip_smoke",
     "chip_pair",
 ]
