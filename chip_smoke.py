@@ -112,7 +112,12 @@ PyTorch version on the card:
   bf16), the loss and gradients against the single-card path, 10 Adam
   steps against the single-card step's, the dist step's ms, and its
   ``slab_matmul_t``/``residual_combine_t`` launches per step (4 a slab
-  tier, 4), the counts set to 0 just before the steps; the ELL twin.
+  tier, 4), the counts set to 0 just before the steps; the ELL twin; and
+  each path's step captured as one CUDA graph on NCCL
+  (``dist_ops.make_captured_dist_step``) against the same step run step
+  by step, 10 Adam steps, losses and final weights within CAPTURE_RTOL,
+  with the captured step's ms and idle share beside the step-by-step
+  one's before capture existed (5.9094 ms at 60.6% idle).
   (b) ``shard_graph_hybrid(g, 4)`` shard by shard: each rank's table as
   the exchange would deliver it, its tiers on the kernels against their
   plain composition, and the four shards against the single-card
@@ -147,7 +152,18 @@ PyTorch version on the card:
   aggregation) within BASELINE_RTOL, and their first forward's
   log-probabilities equal its, node by node and class by class, within
   1e-4 + n·2^-24 of the row's scale (``log_prob_tol``); then 5 timed
-  epochs.
+  epochs;
+- phase 17: the tools and the multi-device drivers, each checking
+  itself: ``tools.overlap_ablation`` on one NCCL rank (a reduced graph, a
+  diagonal tier forced; both arms through the captured step, their
+  losses equal), ``bench.bench_scaling --devices 1``,
+  ``tools.multihost_demo --hosts 1 --local_devices 1``,
+  ``tools.ogb_scale_demo`` at amazon0505 scale with ``--shard_devices 4``
+  (on all-ones x each row's SpMM sum equals its degree), and
+  ``tools.reorder`` on the 10k graph as a text edge list (a permutation;
+  a community per node and a modularity).  Their hybrid kernel launches
+  go to the ``kernels`` line as ``tool_launches``; ``slab_matmul_t`` and
+  ``residual_combine_t`` must have some.
 
 In every training run through the captured step the hybrid kernels'
 wrappers count their launches once per eager step and once at capture; a
@@ -155,8 +171,9 @@ replay runs the captured kernels without passing a wrapper.  The checks
 count kernel runs (the wrappers' counts plus the captured step's launches
 for each further replay); the ``kernels`` line reports the wrappers'
 counts of the main path's run (phases 3-6; phase 8 for the probe
-kernels) as ``launches``, and those of the measurement drivers (phase 15)
-as ``driver_launches``.
+kernels) as ``launches``, those of the measurement drivers (phase 15)
+as ``driver_launches``, and those of the tools (phase 17) as
+``tool_launches``.
 
 The layouts of phases 2-6 are built with the probe off, so that they are
 the cost model's.  Every check raises on failure, so the exit code is
@@ -186,8 +203,8 @@ import torch
 from gnnadvisor_osdi21_tpu_torch import cli
 from gnnadvisor_osdi21_tpu_torch.baselines import naive, torch_baseline
 from gnnadvisor_osdi21_tpu_torch.bench import (
-    bench_spmm, breakdown, campaign, fixprobe, fmtprobe, headline, levers,
-    roster2md, splitprobe, stepprobe, verify_all,
+    bench_scaling, bench_spmm, breakdown, campaign, fixprobe, fmtprobe,
+    headline, levers, roster2md, splitprobe, stepprobe, verify_all,
 )
 from gnnadvisor_osdi21_tpu_torch.bench.datasets import DATASETS, get_dataset
 from gnnadvisor_osdi21_tpu_torch.graphs import hybrid
@@ -217,7 +234,9 @@ from gnnadvisor_osdi21_tpu_torch.parallel.dist_hybrid import local_tensors
 from gnnadvisor_osdi21_tpu_torch.parallel.hybrid_partition import (
     shard_graph_hybrid,
 )
-from gnnadvisor_osdi21_tpu_torch.tools import dist_check
+from gnnadvisor_osdi21_tpu_torch.tools import (
+    dist_check, multihost_demo, ogb_scale_demo, overlap_ablation, reorder,
+)
 from gnnadvisor_osdi21_tpu_torch.tuner.decider import InputProperty
 from gnnadvisor_osdi21_tpu_torch.utils import profiling
 from gnnadvisor_osdi21_tpu_torch.utils.checkpoint import load_checkpoint
@@ -334,6 +353,17 @@ ROSTER_DIMS = (50, 128, 500, 1323)
 # the baselines' first-step loss against the tuned model's, f32
 # aggregation: the same sums in other orders
 BASELINE_RTOL = 1e-4
+# phase 14: one NCCL rank's hybrid step run step by step, before the step
+# was captured (NVIDIA H100 80GB HBM3 at 700 W), logged beside the
+# captured step
+STEPWISE_DIST_MS, STEPWISE_DIST_IDLE = 5.9094, 0.606
+# phase 17: the ablation's community graph cut to a quarter of its nodes
+# (the same degree), with a diagonal tier forced (the cost model's layout
+# of it may have none); ogb_scale_demo at amazon0505's node count, with
+# ogbn-products' edges per node
+ABLATION = dict(nodes=50_000, edges=600_000, epochs=20, diag_b=512)
+OGB_ARGS = ["--nodes", "410236", "--edges", "10361000", "--shard_devices",
+            "4"]
 BASELINE_DATASET = "pubmed"
 
 T0 = time.perf_counter()
@@ -404,6 +434,7 @@ class Record:
         self.max_abs_err = 0.0
         self.launches = 0  # the main path's (phases 3-6, and 8 for probes)
         self.driver_launches = 0  # the measurement drivers' (phase 15)
+        self.tool_launches = 0  # the tools' (phase 17)
         self.ms = self.plain_ms = self.bound_ms = self.library_ms = None
         self.bound_by = "bytes"
 
@@ -412,6 +443,7 @@ class Record:
             "name": self.name, "route": "cuda", "source": SOURCES[self.name],
             "replaces": REPLACES[self.name], "launches": self.launches,
             "driver_launches": self.driver_launches,
+            "tool_launches": self.tool_launches,
             "max_abs_err": self.max_abs_err, "ms": self.ms,
             "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
             "bound_by": self.bound_by, "library_ms": self.library_ms,
@@ -2520,6 +2552,22 @@ def phase14(layouts) -> None:
     else:
         log("  device busy time of the dist step: not measured (the "
             "profiler saw no device time)")
+    for key, label in (("capture", "hybrid (bf16 tiers)"),
+                       ("capture_ell", "ELL")):
+        cap = info[key]
+        require(bool(cap), f"the {label} step was captured on NCCL")
+        busy = cap["captured_busy_ms"]
+        idle = (f"{1 - busy / cap['captured_ms']:.3f}" if busy
+                else "not measured (the profiler saw no device time)")
+        before = (f" (before capture: {STEPWISE_DIST_MS} ms at "
+                  f"{STEPWISE_DIST_IDLE:.1%} idle)" if key == "capture"
+                  else "")
+        log(f"  {label} step captured as one CUDA graph, one NCCL rank: "
+            f"{cap['captured_ms']:.4f} ms per step (median, CUDA events), "
+            f"device busy {busy:.4f} ms, idle share {idle}; step by step "
+            f"{cap['eager_ms']:.4f} ms{before}")
+        for name, ms, n in cap["captured_profile"][:6]:
+            log(f"    {ms:8.4f} ms/step  x{n:<3d} {name[:100]}")
 
     # (b) a 4-way layout, shard by shard
     start = time.perf_counter()
@@ -2581,11 +2629,13 @@ def phase14(layouts) -> None:
             "the CLI refuses more ranks than cards, naming both counts")
 
 
-def run_driver(label: str, main_fn, argv: list[str], recs) -> list[str]:
-    """A driver's ``main(argv)`` in this process: exit 0.  Its hybrid
-    kernel launches (counts set to 0 just before it, read just after) go
-    to the kernels' ``driver_launches``, apart from the main path's
-    ``launches``.  Returns its output lines, which are also printed."""
+def run_driver(label: str, main_fn, argv: list[str], recs,
+               into: str = "driver_launches") -> list[str]:
+    """A driver's or tool's ``main(argv)`` in this process: exit 0.  Its
+    hybrid kernel launches (counts set to 0 just before it, read just
+    after) go to the kernels' ``into`` count (``driver_launches``, or the
+    tools' ``tool_launches``), apart from the main path's ``launches``.
+    Returns its output lines, which are also printed."""
     spmm_cuda.reset_launches()
     buf = io.StringIO()
     start = time.perf_counter()
@@ -2599,7 +2649,7 @@ def run_driver(label: str, main_fn, argv: list[str], recs) -> list[str]:
         print(f"    | {line}", flush=True)
     require(rc == 0, f"{label} exits 0")
     for name, n in counts.items():
-        recs[name].driver_launches += n
+        setattr(recs[name], into, getattr(recs[name], into) + n)
     return lines
 
 
@@ -2641,6 +2691,86 @@ def phase15(recs) -> None:
     for name in spmm_cuda.KERNELS:
         require(recs[name].driver_launches > 0,
                 f"{name} launched by the measurement drivers")
+
+
+def phase17(layouts, recs) -> None:
+    """The tools and the multi-device drivers, each checking itself:
+    ``overlap_ablation`` (one NCCL rank), ``bench_scaling --devices 1``,
+    ``multihost_demo --hosts 1 --local_devices 1``, ``ogb_scale_demo`` at
+    amazon0505 scale with ``--shard_devices 4``, ``tools.reorder`` on the
+    10k graph as a text edge list."""
+    log("phase 17: the tools and the multi-device drivers")
+
+    def printed(line: str) -> None:
+        print(f"    | {line}", flush=True)
+
+    start = time.perf_counter()
+    res = overlap_ablation.run(devices=1, log=printed, **ABLATION)
+    arms = res["losses"]
+    err = max(abs(a - b) / max(abs(b), 1e-30)
+              for a, b in zip(arms[True][0], arms[False][0]))
+    log(f"  overlap_ablation ({time.perf_counter() - start:.1f} s), diag_b "
+        f"{res['diag_b']} hot_k {res['hot_k']}; the rank's launches "
+        f"{res['launches']}; the arms' {len(arms[True][0])} losses differ "
+        f"by at most {err:.3e} relative (bitwise: {arms[True] == arms[False]})")
+    require(res["diag_b"] > 0 and err <= CAPTURE_RTOL
+            and all(math.isfinite(v) for v in arms[True][0]),
+            "the ablation's two arms train alike, with a diagonal tier")
+    require(all(math.isfinite(v) and v > 0 for v in res["ms"].values()),
+            "the ablation timed both arms")
+    for name, n in res["launches"].items():
+        recs[name].tool_launches += n
+
+    start = time.perf_counter()
+    lines = []
+    rows = bench_scaling.run([1], log=lines.append)
+    for line in lines:
+        printed(line)
+    log(f"  bench_scaling --devices 1 ({time.perf_counter() - start:.1f} s)")
+    require(len(rows) == 1 and math.isfinite(rows[0]["epoch_ms"])
+            and rows[0]["epoch_ms"] > 0 and math.isfinite(rows[0]["loss"][0])
+            and any("NVLink data-sheet rate" in ln for ln in lines),
+            "bench_scaling times one rank, with the data-sheet link rate")
+
+    start = time.perf_counter()
+    res = multihost_demo.run(1, 1, log=printed)
+    log(f"  multihost_demo --hosts 1 --local_devices 1 "
+        f"({time.perf_counter() - start:.1f} s): {res}")
+    require(res["ok"], "the multi-host demo's rank ran and printed its loss")
+
+    out = run_driver("ogb_scale_demo " + " ".join(OGB_ARGS),
+                     ogb_scale_demo.main, OGB_ARGS, recs, "tool_launches")
+    require(any(ln.endswith("equals its degree: exact") for ln in out)
+            and any(ln.startswith("shard plan nd=4") for ln in out),
+            "ogb_scale_demo's SpMM sums and its 4-way plan")
+
+    g10 = layouts[2][0]
+    path = os.path.join("chiprun_out", f"chip_smoke-reorder-{os.getpid()}.txt")
+    os.makedirs("chiprun_out", exist_ok=True)
+    np.savetxt(path, g10.edge_index.T, fmt="%d")
+    start = time.perf_counter()
+    outs, rcs = [], []
+    try:
+        for argv in ([path], ["-c", path]):  # a line a node: not echoed
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rcs.append(reorder.main(argv))
+            outs.append(out.getvalue().splitlines())
+    finally:
+        os.remove(path)
+    require(rcs == [0, 0], "the reorder tool exits 0")
+    (perm, comm), n = outs, g10.num_nodes
+    q = float(err.getvalue().split("modularity:")[1])
+    log(f"  tools.reorder on the 10k graph: {len(perm)} ids, "
+        f"{len(set(comm))} communities, modularity {q:.6f} "
+        f"({time.perf_counter() - start:.1f} s)")
+    require(sorted(int(v) for v in perm) == list(range(n))
+            and len(comm) == n and -0.5 <= q <= 1.0,
+            "the reorder tool prints a permutation, and a community per "
+            "node with a modularity")
+    for name in ("slab_matmul_t", "residual_combine_t"):
+        require(recs[name].tool_launches > 0, f"{name} launched by the tools")
 
 
 class _Plain:
@@ -2885,7 +3015,8 @@ def main() -> int:
             ("13", lambda: phase13(layouts, rm, done["12"])),
             ("14", lambda: phase14(layouts)),
             ("15", lambda: phase15(recs)),
-            ("16", lambda: phase16(layouts, recs))):
+            ("16", lambda: phase16(layouts, recs)),
+            ("17", lambda: phase17(layouts, recs))):
         start = time.perf_counter()
         done[name] = phase()
         log(f"  phase took {time.perf_counter() - start:.1f} s")

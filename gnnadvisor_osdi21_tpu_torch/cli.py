@@ -29,8 +29,12 @@ port does with them:
   cpu``.  ``--method auto|hybrid`` shards the hybrid layout
   (``dist_hybrid``, honouring ``--diagB``, ``--hotK``, ``--agg_dtype``),
   any other method the ELL one (``dist_ops``); 10 warm-up steps, then
-  ``--num_epoches`` timed steps, and rank 0 prints ``Time (ms):``, the
-  host's wall milliseconds per step (the step ends on the loss's fetch).
+  ``--num_epoches`` timed steps, and rank 0 prints ``Time (ms):``.  On
+  NCCL with ``--use_scan True`` the timed steps replay the step captured
+  as one CUDA graph, CUDA-event milliseconds per step; otherwise (gloo,
+  or ``--use_scan False``) they run step by step, the host's wall
+  milliseconds per step (the step ends on the loss's fetch), and on gloo
+  the ``#`` line before says so.
 
 Booleans are the strings 'True'/'False', as in the reference (:34-39).
 The last line is ``Time (ms): <epoch ms>`` (GNNA_main.py:202, which the
@@ -280,15 +284,19 @@ def run_multi_device(args, graph, device) -> int:
         path, sg, args.model, args.dim, args.hidden, graph.num_classes,
         graph.init_embedding(args.dim, seed=args.seed),
         graph.init_labels(graph.num_classes), args.seed, args.agg_dtype,
-        args.num_epoches,
+        args.num_epoches, args.use_scan == "True",
     ))
     return 0
 
 
 def _train_rank(group, path, sg, model, dim, hidden, classes, x, y, seed,
-                agg_dtype, epochs) -> None:
+                agg_dtype, epochs, use_scan) -> None:
     """One rank of ``run_multi_device``: 10 warm-up steps, then ``epochs``
-    timed ones; rank 0 prints the milliseconds per step."""
+    timed ones; rank 0 prints the milliseconds per step.  On NCCL with
+    ``use_scan`` the timed steps replay the step captured as one CUDA graph
+    (``dist_ops.make_captured_dist_step``), timed by CUDA events; otherwise
+    they run step by step, timed by the host's clock up to the loss's
+    fetch."""
     import torch
 
     from gnnadvisor_osdi21_tpu_torch.ops.aggregate import exact_f32_matmul
@@ -303,19 +311,20 @@ def _train_rank(group, path, sg, model, dim, hidden, classes, x, y, seed,
         step, init = dist_ops.make_dist_train_step(group, sg, model)
     net, opt, xb, yb = init(torch.Generator().manual_seed(seed), dim, hidden,
                             classes, x, y)
-    for _ in range(10):
-        loss = step(net, opt, xb, yb)
-    float(loss)  # the host's fetch waits for the step
-    start = time.perf_counter()
-    for _ in range(epochs):
-        loss = step(net, opt, xb, yb)
-    float(loss)
-    ms = (time.perf_counter() - start) * 1e3 / max(epochs, 1)
+    capture = use_scan and group.backend == "nccl"
+    ms, _ = dist_ops.timed_dist_steps(step, net, opt, xb, yb, group, 10,
+                                      epochs, capture)
     if group.rank == 0:
-        if group.device.type == "cpu":
+        if capture:
+            print(f"# {group.world} NCCL ranks: Time (ms) below is the step "
+                  "captured as one CUDA graph, CUDA-event milliseconds per "
+                  "replay", flush=True)
+        elif group.device.type == "cpu":
             print("# --platform cpu: Time (ms) below is the host's wall "
                   f"milliseconds per training step on {group.world} gloo "
-                  "ranks (plain versions), not a card time", flush=True)
+                  "ranks (plain versions), not a card time; the ranks ran "
+                  "step by step (gloo collectives cannot be captured)",
+                  flush=True)
         print(f"Time (ms): {ms:.3f}", flush=True)
 
 

@@ -22,11 +22,19 @@ So the ranks run their backward exchanges together, as their forward
 ones.  The JAX ``shard_map`` sums the replicated weights' gradients over
 the mesh by itself; here each rank's backward gives its own share, and
 ``all_reduce_grads`` sums the shares before the optimizer's step.
+
+The JAX package compiles each path's step into one program (``jax.jit``
+over ``shard_map``); here ``make_captured_dist_step`` captures either
+path's step as one CUDA graph on NCCL, its exchanges and reductions
+inside it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
+import time
 from typing import Callable
 
 import numpy as np
@@ -38,7 +46,8 @@ from gnnadvisor_osdi21_tpu_torch.ops.graph_tensors import _offsets
 from gnnadvisor_osdi21_tpu_torch.parallel.mesh import Group
 from gnnadvisor_osdi21_tpu_torch.parallel.partition import ShardedGraph
 from gnnadvisor_osdi21_tpu_torch.train import (
-    build_model, make_optimizer, nll_per_row,
+    CapturedStep, build_model, capture_step, make_optimizer, nll_per_row,
+    warm_up,
 )
 
 
@@ -290,6 +299,87 @@ def make_train_step_on(loss_fn: Callable, group: Group, lr: float,
         return tuple(out)
 
     return step, init
+
+
+def make_captured_dist_step(step: Callable, net: torch.nn.Module,
+                            opt: torch.optim.Optimizer, x: torch.Tensor,
+                            y: torch.Tensor, group: Group,
+                            capacity: int = 1) -> CapturedStep:
+    """``step(net, opt, x, y)`` (either path's ``make_dist_train_step``)
+    captured as one CUDA graph: the halo exchanges (``all_to_all_single``,
+    forward and backward), the loss's ``all_reduce`` and the gradients'
+    ``all_reduce`` run inside it, on NCCL's stream, ordered against the
+    kernels by the stream waits that ``Work.wait()`` records; with
+    ``overlap`` the diagonal tier, issued before the wait, stays a branch
+    of the graph beside the exchange.  Every rank captures and replays the
+    same step.  Warm the step up first (``train.warm_up``, at least one
+    step): that creates Adam's state and runs each collective once, so
+    that NCCL's communicator exists before capture.
+
+    What capture on NCCL needs (PyTorch 2.11, NCCL 2.28 on an H100): the
+    warm-up's collectives finished before capture (the synchronisation
+    below); ``Work.wait()`` only making the stream wait, so
+    ``TORCH_NCCL_BLOCKING_WAIT`` (a host wait) is refused; and the capture
+    in ``thread_local`` mode, so that the process group's watchdog thread,
+    which queries its collectives' events at any time, is not bound by
+    the capture's rules (``global`` mode would bind every thread).  The
+    send buffers come from the graph's private pool, with
+    ``TORCH_NCCL_AVOID_RECORD_STREAMS`` left at its default.  A gloo group
+    raises: its collectives run on the host, outside any graph."""
+    if group.backend != "nccl":
+        raise ValueError(
+            f"a {group.backend} group cannot be captured in a CUDA graph (its "
+            "collectives run on the host): run its step step by step")
+    if os.environ.get("TORCH_NCCL_BLOCKING_WAIT", "0") not in ("", "0"):
+        raise ValueError("TORCH_NCCL_BLOCKING_WAIT makes Work.wait() block "
+                         "the host, which a CUDA-graph capture forbids")
+    torch.cuda.synchronize(group.device)
+    return capture_step(lambda: step(net, opt, x, y), group.device, capacity,
+                        capture_error_mode="thread_local")
+
+
+def timed_dist_steps(step: Callable, net: torch.nn.Module,
+                     opt: torch.optim.Optimizer, x: torch.Tensor,
+                     y: torch.Tensor, group: Group, warmup: int, epochs: int,
+                     capture: bool, trace_dir: str | None = None,
+                     ) -> tuple[float, list[float]]:
+    """``warmup`` steps of ``step(net, opt, x, y)``, then ``epochs`` timed
+    ones: (ms per timed step, every step's loss).  ``capture`` (NCCL
+    only): the timed steps replay the step captured as one CUDA graph
+    (``make_captured_dist_step``), timed by CUDA events; otherwise they
+    run step by step, timed by the host's clock up to the last loss's
+    fetch.  ``trace_dir``: a ``torch.profiler`` trace of the timed steps
+    goes there (``utils/profiling.trace``)."""
+    from gnnadvisor_osdi21_tpu_torch.utils.profiling import trace
+
+    traced = trace(trace_dir) if trace_dir else contextlib.nullcontext()
+    n = max(epochs, 1)
+    if capture:
+        losses = warm_up(lambda: step(net, opt, x, y), max(warmup, 1),
+                         group.device)
+        captured = make_captured_dist_step(step, net, opt, x, y, group,
+                                           capacity=n)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with traced:
+            start.record()
+            for _ in range(epochs):
+                captured.replay()
+            end.record()
+            end.synchronize()
+        return (start.elapsed_time(end) / n,
+                torch.stack(losses).tolist() + captured.losses())
+    losses = [step(net, opt, x, y) for _ in range(warmup)]
+    if losses:
+        float(losses[-1])  # the host's fetch waits for the step
+    with traced:
+        t0 = time.perf_counter()
+        for _ in range(epochs):
+            losses.append(step(net, opt, x, y))
+        if losses:
+            float(losses[-1])
+        ms = (time.perf_counter() - t0) * 1e3 / n
+    return ms, torch.stack(losses).tolist() if losses else []
 
 
 def make_dist_loss_fn(group: Group, sg: ShardedGraph, model: str,

@@ -4,7 +4,8 @@
 The JAX package shards node row blocks over a 1-D device mesh inside one
 program.  Here each shard is a process: ``world`` ranks in one
 ``torch.distributed`` process group, rank r owning row block r.  On the
-card the group is NCCL with rank r on ``cuda:r``; on the host it is gloo.
+card the group is NCCL with rank r on ``cuda:r`` (or, on several hosts,
+on ``cuda:<its local rank>``); on the host it is gloo.
 The ranks meet through a ``file://`` store in a temporary directory, never
 a fixed TCP port, so that several groups can start side by side.
 
@@ -62,16 +63,19 @@ def check_cards(num_devices: int, device) -> torch.device:
 
 def make_group(
     num_devices: int, device=None, rank: int = 0,
-    init_file: str | None = None,
+    init_file: str | None = None, local_rank: int | None = None,
 ) -> Group:
     """Join rank ``rank`` of a group of ``num_devices`` ranks.
 
-    ``device``: None for the card (NCCL, rank r on ``cuda:r``; raises with
-    fewer cards than ranks), ``"cpu"`` for gloo.  ``init_file``: the path
-    of the group's ``file://`` store, the same for every rank and not yet
-    existing; a group of one may leave it None and gets a store in a
-    temporary directory of its own (removed by ``destroy_group``)."""
-    dev = check_cards(num_devices, device)
+    ``device``: None for the card (NCCL, the rank on ``cuda:local_rank``;
+    raises when this host has no such card), ``"cpu"`` for gloo.
+    ``local_rank``: the rank's index among its host's ranks (None: ``rank``,
+    every rank on one host).  ``init_file``: the path of the group's
+    ``file://`` store, the same for every rank and not yet existing; a
+    group of one may leave it None and gets a store in a temporary
+    directory of its own (removed by ``destroy_group``)."""
+    local = rank if local_rank is None else local_rank
+    dev = check_cards(num_devices if local_rank is None else local + 1, device)
     own_dir = None
     if init_file is None:
         if num_devices != 1:
@@ -80,7 +84,7 @@ def make_group(
         own_dir = tempfile.mkdtemp(prefix="gnna_group_")
         init_file = os.path.join(own_dir, "store")
     if dev.type == "cuda":
-        dev = torch.device("cuda", rank)
+        dev = torch.device("cuda", local)
         torch.cuda.set_device(dev)
         backend = "nccl"
         kw = {"device_id": dev}

@@ -21,12 +21,20 @@ single-card layout of the same tiers and geometry, it checks:
 - ``steps`` Adam steps (bf16 tiers): the losses against the single-card
   step's, each step's time by CUDA events (on the card), and the hybrid
   kernels' launches per step;
-- the ELL twin (``dist_ops``) against the single-card ELL aggregation.
+- the ELL twin (``dist_ops``) against the single-card ELL aggregation;
+- on NCCL, each path's step captured as one CUDA graph
+  (``dist_ops.make_captured_dist_step``) against the same step run step
+  by step from the same weights: ``steps`` Adam steps' losses and the
+  final weights within CAPTURE_RTOL; the captured step's ms (CUDA
+  events) and device busy time (``torch.profiler``) beside the
+  step-by-step one's.  A gloo group cannot capture: on the host the
+  check is that asking it to raises.
 
 ``--ranks N`` (``run_ranks_check``) runs the same program on N ranks,
 one card each (or N gloo processes with ``--device cpu``), and holds the
 ranks' results put together against the single-card paths on the first
-card; it also times each rank's step and its exchange alone.  Exit code
+card; it also times each rank's step (step by step and, on NCCL,
+captured, held against each other) and its exchange alone.  Exit code
 0 when every check holds.
 """
 
@@ -58,13 +66,17 @@ from gnnadvisor_osdi21_tpu_torch.parallel.hybrid_partition import (
 )
 from gnnadvisor_osdi21_tpu_torch.parallel.partition import shard_graph
 from gnnadvisor_osdi21_tpu_torch.train import (
-    make_optimizer, make_train_step, nll_loss,
+    make_optimizer, make_train_step, nll_loss, warm_up,
 )
 
 # distributed against single-card: the same kernels on the same table rows
 # (one rank ships nothing), so at most f32 summation order in the loss
 AGG_RTOL = 1e-5  # elementwise, and of the largest value
 LOSS_RTOL = 1e-4  # losses over the steps and gradients, relative
+# the captured step against the step-by-step loop: the same kernels and
+# collectives in the same order, so equal up to the last bits
+CAPTURE_RTOL = 1e-6
+TIMED_REPLAYS = 20  # CUDA-event-timed replays of a captured step
 
 
 class Checks:
@@ -143,6 +155,60 @@ def _device_profile(step, dev: torch.device, steps: int = 3):
     return sum(e[1] for e in events), events[:10]
 
 
+def captured_against_eager(label: str, step, init, group, steps: int,
+                           checks: Checks, log=print) -> dict:
+    """``step(net, opt, x, y)`` (a distributed path's) captured as one CUDA
+    graph against the same step run ``steps`` times step by step, each
+    from ``init()``'s weights: the losses and the final weights within
+    CAPTURE_RTOL (the captured run: one warm-up step, then ``steps - 1``
+    replays).  Returns the captured and the step-by-step ms per step
+    (medians, CUDA events) and the captured step's device busy ms per step
+    and largest entries (``_device_profile``).  A gloo group raises on
+    capture, and that is what is checked there."""
+    dev = group.device
+    if group.backend != "nccl":
+        try:
+            dist_ops.make_captured_dist_step(step, *init(), group)
+        except ValueError as e:
+            checks.add(f"{label}: a {group.backend} group refuses to "
+                       f"capture ({e})", 0.0, 0.0, True)
+        else:
+            checks.add(f"{label}: a {group.backend} group captured", 1.0,
+                       0.0, False)
+        return {}
+    net, opt, xb, yb = init()
+    eager = torch.stack([step(net, opt, xb, yb) for _ in range(steps)])
+    cnet, copt, cxb, cyb = init()
+    warm = warm_up(lambda: step(cnet, copt, cxb, cyb), 1, dev)
+    cap = dist_ops.make_captured_dist_step(
+        step, cnet, copt, cxb, cyb, group,
+        capacity=steps - 1 + TIMED_REPLAYS + 4)
+    for _ in range(steps - 1):
+        cap.replay()
+    got = torch.cat([torch.stack(warm), cap.history[: steps - 1]])
+    checks.close(f"{label}: captured step's {steps} losses against step by "
+                 "step", got, eager, CAPTURE_RTOL)
+    for (name, p), q in zip(cnet.named_parameters(), net.parameters()):
+        checks.close(f"{label}: captured step's final {name} against step "
+                     "by step", p.detach(), q.detach(), CAPTURE_RTOL)
+
+    def replay() -> torch.Tensor:
+        cap.replay()
+        return cap.history[cap.replays - 1]
+
+    _, cap_ms = _timed_steps(replay, TIMED_REPLAYS, dev)
+    _, eager_ms = _timed_steps(lambda: step(net, opt, xb, yb),
+                               TIMED_REPLAYS, dev)
+    info = {"captured_ms": statistics.median(cap_ms),
+            "eager_ms": statistics.median(eager_ms)}
+    info["captured_busy_ms"], info["captured_profile"] = _device_profile(
+        replay, dev)
+    log(f"  {label}: captured {info['captured_ms']:.4f} ms per step "
+        f"(device busy {info['captured_busy_ms']:.4f}), step by step "
+        f"{info['eager_ms']:.4f} (medians of {TIMED_REPLAYS}, CUDA events)")
+    return info
+
+
 def run(g: GraphCSR, dim: int = 96, hidden: int = 16, classes: int = 22,
         device=None, steps: int = 10, single: HybridGraph | None = None,
         log=print) -> tuple[Checks, dict]:
@@ -152,7 +218,9 @@ def run(g: GraphCSR, dim: int = 96, hidden: int = 16, classes: int = 22,
     geometry are the ones ``shard_graph_hybrid(g, 1)`` chooses (else one
     is built).  Returns the checks and the measurements: per-step ms (dist
     and single-card, None off the card), the hybrid kernels' launches per
-    distributed step, the layouts' tiers and the build seconds."""
+    distributed step, the layouts' tiers, the build seconds, and each
+    path's captured step against its step-by-step one (``capture``,
+    ``capture_ell``: ``captured_against_eager``'s, empty off NCCL)."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         exact_f32_matmul()
@@ -251,6 +319,11 @@ def run(g: GraphCSR, dim: int = 96, hidden: int = 16, classes: int = 22,
         checks.close(f"{steps} Adam steps' losses (bf16 tiers)",
                      torch.tensor(dist_losses), want, LOSS_RTOL)
         info["dist_losses"], info["single_losses"] = dist_losses, single_losses
+        info["capture"] = captured_against_eager(
+            "hybrid (bf16 tiers)", step,
+            lambda: init(torch.Generator(), dim, hidden, classes, x_np,
+                         y_np, init_params=weights),
+            group, steps, checks, log)
         for key, ms in (("dist_ms", dist_ms), ("single_ms", single_ms)):
             info[key] = None if ms is None else statistics.median(ms)
         per_tier = bool(sg.diag_b) + bool(sg.hot_k)
@@ -280,6 +353,13 @@ def run(g: GraphCSR, dim: int = 96, hidden: int = 16, classes: int = 22,
             got = dist_ops.dist_aggregate(h_pad, she, norm)[: g.num_nodes]
             checks.close(f"ELL dist aggregate D={hidden} norm={norm}", got,
                          aggregate(h, gt, norm))
+        estep, einit = dist_ops.make_dist_train_step(group, sge, "gcn")
+        info["capture_ell"] = captured_against_eager(
+            "ELL", estep,
+            lambda: einit(torch.Generator(), dim, hidden, classes,
+                          x_np[: g.num_nodes], y_np[: g.num_nodes],
+                          init_params=weights),
+            group, steps, checks, log)
         _sync(dev)
     finally:
         mesh.destroy_group(group)
@@ -303,7 +383,9 @@ def _inputs(g: GraphCSR, rows: int, dim: int, hidden: int, classes: int):
 def _rank_check(group, sg, sge, x, y, h_t, weights, steps, out_dir):
     """One rank of ``run_ranks_check``: its shard's aggregates, the loss
     and gradients, ``steps`` Adam steps (f32 tiers, compared; then bf16,
-    timed) and the exchange alone, into ``rank<r>.npz``."""
+    timed), the bf16 step captured against itself step by step
+    (``captured_against_eager``; on gloo, that capture raises) and the
+    exchange alone, into ``rank<r>.npz``."""
     import os
 
     dev, r, block = group.device, group.rank, sg.block
@@ -347,6 +429,17 @@ def _rank_check(group, sg, sge, x, y, h_t, weights, steps, out_dir):
         res[f"losses_{dt}"] = np.asarray(losses)
         if ms is not None:
             res[f"ms_{dt}"] = np.asarray(ms)
+    # the bf16 step captured, against itself step by step
+    checks = Checks(log=lambda m: None)
+    cap = captured_against_eager(
+        f"rank {r}", step,
+        lambda: init(torch.Generator(), dim, hidden, classes, x, y,
+                     init_params=weights), group, steps, checks)
+    res["capture_ok"] = np.asarray(checks.ok)
+    res["capture_err"] = np.asarray(max(row[1] for row in checks.rows))
+    for key in ("captured_ms", "eager_ms", "captured_busy_ms"):
+        if key in cap:
+            res[key] = np.asarray(cap[key])
     # the exchange alone: a bf16 table of the hidden width
     plan = shards["bfloat16"].plan
     table = spmm_cuda.row_table_t(h_blk, torch.bfloat16,
@@ -373,8 +466,11 @@ def run_ranks_check(g: GraphCSR, ranks: int, dim: int = 96,
     the single-card paths on the first card: the aggregates (norm,
     overlap, f32 and bf16 tiers) and the ELL twin within AGG_RTOL, GCN's
     loss and gradients and ``steps`` Adam steps' losses (f32 tiers)
-    within LOSS_RTOL.  The measurements: each rank's ms per step (f32 and
-    bf16 tiers) and ms per exchange, with the rows it ships."""
+    within LOSS_RTOL; on each rank, the bf16 step captured against itself
+    step by step within CAPTURE_RTOL (on gloo: that capture raises).  The
+    measurements: each rank's ms per step (f32 and bf16 tiers; on NCCL
+    also captured, with its device busy ms) and ms per exchange, with the
+    rows it ships."""
     import tempfile
 
     dev = resolve_device(device)
@@ -446,6 +542,14 @@ def run_ranks_check(g: GraphCSR, ranks: int, dim: int = 96,
                  torch.from_numpy(per[0]["losses_float32"]),
                  torch.tensor(single_losses, dtype=torch.float64)
                  .to(torch.float32), LOSS_RTOL)
+    for r, p in enumerate(per):
+        checks.add(f"rank {r}: the captured bf16 step against step by step "
+                   "(or, on gloo, the refusal to capture)",
+                   float(p["capture_err"]), CAPTURE_RTOL,
+                   bool(p["capture_ok"]))
+    if "captured_ms" in per[0]:
+        for key in ("captured_ms", "eager_ms", "captured_busy_ms"):
+            info[f"step_{key}"] = [float(p[key]) for p in per]
     if "ms_float32" in per[0]:
         for dt in ("float32", "bfloat16"):
             info[f"step_ms_{dt}"] = [float(np.median(p[f"ms_{dt}"]))

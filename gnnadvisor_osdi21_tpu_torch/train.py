@@ -156,13 +156,17 @@ class CapturedStep:
     (slot ``replays``), so that no copy runs outside it.  ``launches`` is
     what the hybrid kernels' wrappers counted while the step was captured:
     the kernels each replay runs (a replay passes no wrapper, so
-    ``spmm_cuda.launches`` does not move)."""
+    ``spmm_cuda.launches`` does not move).  ``keep``: tensors the graph
+    reads or writes that nothing else holds (its history slot): a graph
+    does not keep its tensors alive, and the allocator would hand a freed
+    one's memory to the next tensor made."""
 
     def __init__(self, graph: torch.cuda.CUDAGraph, history: torch.Tensor,
-                 launches: dict):
+                 launches: dict, keep: tuple = ()):
         self.graph = graph
         self.history = history
         self.launches = launches
+        self.keep = keep
         self.replays = 0
 
     def replay(self) -> None:
@@ -177,6 +181,47 @@ class CapturedStep:
         return self.history[: self.replays].tolist()
 
 
+def capture_step(
+    step: Callable[[], torch.Tensor],
+    device: torch.device,
+    capacity: int = 1,
+    capture_error_mode: str = "global",
+) -> CapturedStep:
+    """Capture ``step()`` (one training step that returns its loss, on the
+    card) as a ``torch.cuda.CUDAGraph``: the graph runs the step and writes
+    its loss into the history.  The step must be warmed up first
+    (``warm_up``): its optimizer state, cuBLAS and the kernels' launch
+    attributes exist before capture.  A step that cannot be captured (a
+    host synchronisation inside it) raises; nothing falls back to running
+    it eagerly.  ``capacity``: the replays whose losses the history keeps;
+    ``capture_error_mode``: ``torch.cuda.graph``'s."""
+    history = torch.zeros(capacity, dtype=torch.float32, device=device)
+    slot = torch.zeros(1, dtype=torch.int64, device=device)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(spmm_cuda.launches)
+    with torch.cuda.graph(graph, capture_error_mode=capture_error_mode):
+        loss = step()
+        history.index_copy_(0, slot, loss.view(1))
+        slot.add_(1)
+    launches = {k: spmm_cuda.launches[k] - before[k] for k in before}
+    return CapturedStep(graph, history, launches, keep=(slot,))
+
+
+def warm_up(step: Callable[[], torch.Tensor], n: int,
+            device: torch.device) -> list[torch.Tensor]:
+    """Run ``step()`` ``n`` times before a capture, on a side stream as
+    CUDA-graph capture asks (eagerly, where ``device`` is the CPU); returns
+    the losses."""
+    if device.type != "cuda":
+        return [step() for _ in range(n)]
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        losses = [step() for _ in range(n)]
+    torch.cuda.current_stream(device).wait_stream(side)
+    return losses
+
+
 def make_captured_step(
     net: torch.nn.Module,
     hts: Sequence[HybridTensors] | Sequence[GraphTensors],
@@ -189,24 +234,12 @@ def make_captured_step(
     """Capture one training step of ``net`` on the card; the analog of the
     JAX package's ``make_epoch_scan`` (train.py:111-155 there), whose whole
     epoch loop is one compiled program.  The optimizer must be capturable
-    (``make_optimizer`` on the card) and the step warmed up first: its
-    state, cuBLAS and the kernels' launch attributes exist before capture.  A step that
-    cannot be captured (a host synchronisation inside it) raises; nothing
-    falls back to running it eagerly.  ``capacity``: the replays whose
-    losses the history keeps."""
+    (``make_optimizer`` on the card) and the step warmed up first
+    (``warm_up``)."""
     if not x.is_cuda:
         raise ValueError("only a step on the card can be captured")
     step = make_train_step(net, hts, optimizer, mask)
-    history = torch.zeros(capacity, dtype=torch.float32, device=x.device)
-    slot = torch.zeros(1, dtype=torch.int64, device=x.device)
-    graph = torch.cuda.CUDAGraph()
-    before = dict(spmm_cuda.launches)
-    with torch.cuda.graph(graph):
-        loss = step(x, y)
-        history.index_copy_(0, slot, loss.view(1))
-        slot.add_(1)
-    launches = {k: spmm_cuda.launches[k] - before[k] for k in before}
-    return CapturedStep(graph, history, launches)
+    return capture_step(lambda: step(x, y), x.device, capacity)
 
 
 MIN_WINDOWS = 8  # timed windows of each size
@@ -317,13 +350,7 @@ def train_and_time(
         dry_run = max(dry_run, 1)
     t0 = time.perf_counter()
     if capture:
-        # warm up on a side stream, as CUDA-graph capture asks
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(dry_run):
-                step()
-        torch.cuda.current_stream(dev).wait_stream(side)
+        losses += warm_up(lambda: train_step(x, labels), dry_run, dev)
     else:
         for _ in range(dry_run):
             step()

@@ -102,6 +102,8 @@ def test_cli_refuses_several_devices(capfd):
     out = capfd.readouterr().out
     assert len(_time_lines(out)) == 1
     assert "2 gloo ranks" in out
+    assert "the ranks ran step by step (gloo collectives cannot be " \
+        "captured)" in out
 
 
 def test_cli_several_devices_ell(capfd):

@@ -63,6 +63,11 @@ PORT_MODULES = [
     "gnnadvisor_osdi21_tpu_torch.parallel.dist_hybrid",
     "gnnadvisor_osdi21_tpu_torch.tools",
     "gnnadvisor_osdi21_tpu_torch.tools.dist_check",
+    "gnnadvisor_osdi21_tpu_torch.tools.overlap_ablation",
+    "gnnadvisor_osdi21_tpu_torch.tools.multihost_demo",
+    "gnnadvisor_osdi21_tpu_torch.tools.ogb_scale_demo",
+    "gnnadvisor_osdi21_tpu_torch.tools.reorder",
+    "gnnadvisor_osdi21_tpu_torch.bench.bench_scaling",
     "gnnadvisor_osdi21_tpu_torch.bench.breakdown",
     "gnnadvisor_osdi21_tpu_torch.bench.levers",
     "gnnadvisor_osdi21_tpu_torch.bench.bench_spmm",
