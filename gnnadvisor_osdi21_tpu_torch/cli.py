@@ -11,7 +11,9 @@ port does with them:
   (``--model --num_epoches``), ``--method``, ``--diagB``/``--hotK``,
   ``--agg_dtype``, ``--gemm_dtype``, ``--seed``, the mode flags
   (``--manual_mode --verbose_mode --enable_rabbit``) and ``--partSize``:
-  as the JAX package does;
+  as the JAX package does; ``--verbose_mode True`` also prints, once
+  training has run, the set-up's spans (``SETUP_SPANS``) as a tree with
+  self times, and the span store's counters (``utils/profiling.py``);
 - ``--dimWorker``, ``--warpPerBlock`` and ``--sharedMem`` are accepted
   and unused: the CUDA kernels size their own launches
   (``tuner/decider.py``);
@@ -48,6 +50,10 @@ import argparse
 import os.path as osp
 import sys
 import time
+
+# the set-up's top-level spans, which --verbose_mode True prints
+SETUP_SPANS = ("graph.load", "decider", "layout", "kernels.load",
+               "model.init", "optimizer.init", "warm_up", "capture")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -245,11 +251,25 @@ def main(argv=None) -> int:
         ms = (time.perf_counter() - start) * 1e3 / max(len(res["losses"]), 1)
         print(host_note.format("training step"))
     if verbose:
+        print_setup_spans()
         print(f"# warmup (s): {res['warmup_s']:.2f}  final loss: "
               f"{res['final_loss']:.4f}  step: {res['step']}")
     print(f"Time (ms): {ms:.3f}")
     return 0
 
+
+
+def print_setup_spans() -> None:
+    """The set-up's spans as a tree with self times, then the counters, on
+    ``#`` lines."""
+    from gnnadvisor_osdi21_tpu_torch.utils import profiling
+
+    roots = [r for r in profiling.STORE.records
+             if r.parent is None and r.name in SETUP_SPANS]
+    print("# set-up spans (seconds, self seconds):")
+    for line in profiling.format_tree(roots):
+        print(f"#   {line}")
+    print(f"# counters: {profiling.format_counters()}")
 
 
 def run_multi_device(args, graph, device) -> int:

@@ -46,6 +46,7 @@ import torch
 
 from gnnadvisor_osdi21_tpu_torch.device import resolve_device
 from gnnadvisor_osdi21_tpu_torch.graphs.loader import GraphCSR
+from gnnadvisor_osdi21_tpu_torch.utils import profiling
 
 # Cost-model constants: the JAX package's fits, kept unchanged so that the
 # auto tier choice here equals the JAX decider's (the CPU parity tests
@@ -478,64 +479,67 @@ def build_hybrid(
     probe=False)``.
     """
     n = graph.num_nodes
-    rp = np.asarray(graph.row_pointers, dtype=np.int64)
-    ci = np.asarray(graph.column_index, dtype=np.int64)
-    src = np.repeat(np.arange(n, dtype=np.int64), np.diff(rp))
+    with profiling.span("layout.tiers"):
+        rp = np.asarray(graph.row_pointers, dtype=np.int64)
+        ci = np.asarray(graph.column_index, dtype=np.int64)
+        src = np.repeat(np.arange(n, dtype=np.int64), np.diff(rp))
 
-    # Tier choice and residual geometry feed each other (choose_tiers
-    # prices the pair census at a given res_ob; the chosen ob in turn
-    # changes which tiers pay off), so iterate to a consistent fixed
-    # point — at most two passes, since the second pass re-prices at the
-    # geometry the layout will actually be built with (ADVICE r3).
-    in_diag_b, in_hot_k = diag_b, hot_k  # user-fixed (None = auto)
-    in_res_tile, in_res_ob = res_tile, res_ob
-    census_ob = res_ob or 1024
-    for _ in range(2):
-        ranked = rank_tiers(
-            src, ci, n, hot_k=in_hot_k, diag_b=in_diag_b, res_ob=census_ob
-        )
-        diag_b, hot_k = (ranked[0][1], ranked[0][2]) if ranked else (
-            in_diag_b or 0, in_hot_k or 0
-        )
-        if diag_b % 512:
-            raise ValueError(f"diag_b {diag_b} must be a multiple of 512")
-
-        # --- classify edges: diag > hot > residual ----------------------
-        if diag_b:
-            in_diag = (src // diag_b) == (ci // diag_b)
-        else:
-            in_diag = np.zeros(len(src), dtype=bool)
-
-        if hot_k:
-            if hot_k % 32:
-                raise ValueError(f"hot_k {hot_k} must be a multiple of 32")
-            counts = np.bincount(ci[~in_diag], minlength=n)
-            top = np.argsort(counts)[::-1][:hot_k].astype(np.int32)
-            top = top[counts[top] > 0]  # columns with no edges stay padding
-            hot_col = np.full(n, -1, dtype=np.int64)
-            hot_col[top] = np.arange(len(top))
-            in_hot = (~in_diag) & (hot_col[ci] >= 0)
-        else:
-            top = np.zeros(0, dtype=np.int32)
-            in_hot = np.zeros(len(src), dtype=bool)
-
-        in_res = ~(in_diag | in_hot)
-
-        # --- residual geometry (input-adaptive) -------------------------
-        if res_ob is None or res_tile is None:
-            auto_ob, auto_rt = choose_res_geometry(
-                src[in_res], ci[in_res], n,
-                row_align=max(diag_b, row_align),
-                row_cost_ns=SLAB_A_NS + SLAB_B_NS * (diag_b + hot_k),
+        # Tier choice and residual geometry feed each other (choose_tiers
+        # prices the pair census at a given res_ob; the chosen ob in turn
+        # changes which tiers pay off), so iterate to a consistent fixed
+        # point — at most two passes, since the second pass re-prices at the
+        # geometry the layout will actually be built with (ADVICE r3).
+        in_diag_b, in_hot_k = diag_b, hot_k  # user-fixed (None = auto)
+        in_res_tile, in_res_ob = res_tile, res_ob
+        census_ob = res_ob or 1024
+        for _ in range(2):
+            ranked = rank_tiers(
+                src, ci, n, hot_k=in_hot_k, diag_b=in_diag_b, res_ob=census_ob
             )
-            chosen_ob = res_ob or auto_ob
-            chosen_rt = res_tile or auto_rt
-        else:
-            chosen_ob, chosen_rt = res_ob, res_tile
-        if chosen_ob == census_ob:
-            break
-        census_ob = chosen_ob  # re-price the tiers at the real geometry
-    res_ob, res_tile = chosen_ob, chosen_rt
+            diag_b, hot_k = (ranked[0][1], ranked[0][2]) if ranked else (
+                in_diag_b or 0, in_hot_k or 0
+            )
+            if diag_b % 512:
+                raise ValueError(f"diag_b {diag_b} must be a multiple of 512")
+
+            # --- classify edges: diag > hot > residual ----------------------
+            if diag_b:
+                in_diag = (src // diag_b) == (ci // diag_b)
+            else:
+                in_diag = np.zeros(len(src), dtype=bool)
+
+            if hot_k:
+                if hot_k % 32:
+                    raise ValueError(
+                        f"hot_k {hot_k} must be a multiple of 32")
+                counts = np.bincount(ci[~in_diag], minlength=n)
+                top = np.argsort(counts)[::-1][:hot_k].astype(np.int32)
+                # columns with no edges stay padding
+                top = top[counts[top] > 0]
+                hot_col = np.full(n, -1, dtype=np.int64)
+                hot_col[top] = np.arange(len(top))
+                in_hot = (~in_diag) & (hot_col[ci] >= 0)
+            else:
+                top = np.zeros(0, dtype=np.int32)
+                in_hot = np.zeros(len(src), dtype=bool)
+
+            in_res = ~(in_diag | in_hot)
+
+            # --- residual geometry (input-adaptive) -------------------------
+            if res_ob is None or res_tile is None:
+                auto_ob, auto_rt = choose_res_geometry(
+                    src[in_res], ci[in_res], n,
+                    row_align=max(diag_b, row_align),
+                    row_cost_ns=SLAB_A_NS + SLAB_B_NS * (diag_b + hot_k),
+                )
+                chosen_ob = res_ob or auto_ob
+                chosen_rt = res_tile or auto_rt
+            else:
+                chosen_ob, chosen_rt = res_ob, res_tile
+            if chosen_ob == census_ob:
+                break
+            census_ob = chosen_ob  # re-price the tiers at the real geometry
+        res_ob, res_tile = chosen_ob, chosen_rt
     num_rows = _round_up(max(n, 1), max(diag_b, res_ob, row_align))
 
     if hot_k:
@@ -552,27 +556,29 @@ def build_hybrid(
         hot_ids = np.zeros(0, dtype=np.int32)
 
     # --- bit slabs (stored transposed: [words, rows], uint16) -------------
-    if hot_k:
-        hot_bits = pack_slab_bits_t(
-            src[in_hot], hot_col[ci[in_hot]], num_rows, hot_k
-        )
-    else:
-        hot_bits = np.zeros((0, num_rows), dtype=np.uint16)
-    if diag_b:
-        diag_bits = pack_slab_bits_t(
-            src[in_diag], ci[in_diag] % diag_b, num_rows, diag_b
-        )
-    else:
-        diag_bits = np.zeros((0, num_rows), dtype=np.uint16)
+    with profiling.span("layout.pack_slabs"):
+        if hot_k:
+            hot_bits = pack_slab_bits_t(
+                src[in_hot], hot_col[ci[in_hot]], num_rows, hot_k
+            )
+        else:
+            hot_bits = np.zeros((0, num_rows), dtype=np.uint16)
+        if diag_b:
+            diag_bits = pack_slab_bits_t(
+                src[in_diag], ci[in_diag] % diag_b, num_rows, diag_b
+            )
+        else:
+            diag_bits = np.zeros((0, num_rows), dtype=np.uint16)
 
     # --- residual slot stream -------------------------------------------
     # One slot per unique (out-block, destination) pair; the multi-hot
     # mask fans one gathered row out to every block row that wants it
     # (the dedup is what the residual saves: gathers are its cost).
-    rs, rd = src[in_res], ci[in_res]
-    res_gather, res_dst, res_mask, res_mask_s, res_t2b, num_res_pairs = (
-        build_residual_stream(rs, rd, n, num_rows, res_tile, res_ob)
-    )
+    with profiling.span("layout.residual_stream"):
+        rs, rd = src[in_res], ci[in_res]
+        res_gather, res_dst, res_mask, res_mask_s, res_t2b, num_res_pairs = (
+            build_residual_stream(rs, rd, n, num_rows, res_tile, res_ob)
+        )
     # gather formulation: one full-x gather vs compact-then-feed (the
     # RES_STAGE2_FIX_NS rationale above; priced from the exact censuses)
     res_single = bool(len(res_dst)) and (
@@ -615,10 +621,12 @@ def build_hybrid(
         res_single=res_single,
     )
     if probe is not False and (in_diag_b is None or in_hot_k is None):
-        hg = _maybe_probe_tiers(
-            graph, hg, ranked, probe, device,
-            res_tile=in_res_tile, res_ob=in_res_ob, row_align=row_align,
-        )
+        with profiling.span("layout.probe") as rec:
+            hg = _maybe_probe_tiers(
+                graph, hg, ranked, probe, device,
+                res_tile=in_res_tile, res_ob=in_res_ob, row_align=row_align,
+            )
+            rec.attrs["tiers"] = hg.tier_probe
     return hg
 
 
@@ -754,6 +762,7 @@ def _maybe_probe_tiers(
     key = _probe_cache_key(graph, cands, device)
     hit = _probe_cache_get(key)
     if hit is not None:
+        profiling.count("probe.cache_hits")
         b, k = int(hit[0]), int(hit[1])
         if (b, k) != (hg.diag_b, hg.hot_k):
             hg = build_hybrid(
@@ -769,6 +778,7 @@ def _maybe_probe_tiers(
             row_align=row_align, probe=False,
         )
         sec = _probe_spmm_time(cand, device)
+        profiling.count("probe.runs")
         if base_sec is None:
             base_sec = sec
         if best_sec is None or sec < best_sec:

@@ -19,12 +19,12 @@ arrays to its JAX-package counterpart (tests/test_torch_loader.py).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Tuple
 
 import numpy as np
 
 from gnnadvisor_osdi21_tpu_torch.native import graphtools
+from gnnadvisor_osdi21_tpu_torch.utils import profiling
 
 
 def _sqrt_degrees(row_pointers: np.ndarray) -> np.ndarray:
@@ -177,29 +177,39 @@ def load_graph(
     ``max(node id) + 1`` (dataset.py:59-74).  The native parser
     (``native/graphtools``) reads it unless ``use_native_parser`` is False
     or no ``g++`` can build it; ``np.loadtxt`` reads it otherwise.
+
+    Spans: ``graph.load``, around ``graph.parse`` (the file) and
+    ``graph.csr`` (``_from_edges``).
     """
-    start = time.perf_counter()
+    with profiling.span("graph.load") as load:
+        with profiling.span("graph.parse"):
+            src, dst, num_nodes = _read_edges(path, load_from_txt,
+                                              use_native_parser)
+        with profiling.span("graph.csr"):
+            g = _from_edges(src, dst, num_nodes, num_features, num_classes)
+    if verbose:
+        print(f"# Loading (s): {load.seconds:.3f}")
+        print(f"# nodes: {g.num_nodes}")
+        print(f"# avg_degree: {g.avg_degree:.2f}")
+        print(f"# avg_edgeSpan: {int(g.avg_edgeSpan)}")
+    return g
+
+
+def _read_edges(path: str, load_from_txt: bool, use_native_parser: bool):
+    """(src, dst, num_nodes) of the file ``load_graph`` reads."""
     if load_from_txt or path.endswith(".txt"):
         if use_native_parser and graphtools.available():
             src, dst = graphtools.parse_edge_list(path)
         else:
             data = np.loadtxt(path, dtype=np.int64, comments="#", ndmin=2)
             src, dst = data[:, 0], data[:, 1]
-        num_nodes = int(max(src.max(), dst.max())) + 1
-    else:
-        if not path.endswith(".npz"):
-            raise ValueError("graph file must be a .npz file")
-        obj = np.load(path)
-        src = np.asarray(obj["src_li"], dtype=np.int64)
-        dst = np.asarray(obj["dst_li"], dtype=np.int64)
-        num_nodes = int(obj["num_nodes"])
-    g = _from_edges(src, dst, num_nodes, num_features, num_classes)
-    if verbose:
-        print(f"# Loading (s): {time.perf_counter() - start:.3f}")
-        print(f"# nodes: {g.num_nodes}")
-        print(f"# avg_degree: {g.avg_degree:.2f}")
-        print(f"# avg_edgeSpan: {int(g.avg_edgeSpan)}")
-    return g
+        return src, dst, int(max(src.max(), dst.max())) + 1
+    if not path.endswith(".npz"):
+        raise ValueError("graph file must be a .npz file")
+    obj = np.load(path)
+    return (np.asarray(obj["src_li"], dtype=np.int64),
+            np.asarray(obj["dst_li"], dtype=np.int64),
+            int(obj["num_nodes"]))
 
 
 def synthesize_graph(

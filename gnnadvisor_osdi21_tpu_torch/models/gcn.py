@@ -21,6 +21,7 @@ from gnnadvisor_osdi21_tpu_torch.device import resolve_device
 from gnnadvisor_osdi21_tpu_torch.ops.aggregate import gcn_conv, is_transposed
 from gnnadvisor_osdi21_tpu_torch.ops.graph_tensors import GraphTensors
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import HybridTensors
+from gnnadvisor_osdi21_tpu_torch.utils import profiling
 
 
 def _uniform_weight(
@@ -57,7 +58,9 @@ def jax_params(module: nn.Module) -> dict[str, np.ndarray]:
 class GCN(nn.Module):
     """Weights ``conv1 [in, hidden]`` and ``conv2 [hidden, classes]``, drawn
     from ``generator`` (a CPU ``torch.Generator``; seed 0 when None) and
-    placed on ``device`` (None: the card)."""
+    placed on ``device`` (None: the card), inside the span ``model.init``.
+    The forward's spans: ``forward.layer<i>.gemm``, ``.aggregate``,
+    ``forward.layer0.relu`` and ``forward.log_softmax``."""
 
     def __init__(
         self,
@@ -68,15 +71,16 @@ class GCN(nn.Module):
         device=None,
     ):
         super().__init__()
-        dev = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        self.conv1 = nn.Parameter(
-            _uniform_weight(in_dim, hidden, generator).to(dev)
-        )
-        self.conv2 = nn.Parameter(
-            _uniform_weight(hidden, num_classes, generator).to(dev)
-        )
+        with profiling.span("model.init"):
+            dev = resolve_device(device)
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            self.conv1 = nn.Parameter(
+                _uniform_weight(in_dim, hidden, generator).to(dev)
+            )
+            self.conv2 = nn.Parameter(
+                _uniform_weight(hidden, num_classes, generator).to(dev)
+            )
 
     def forward(
         self, x: torch.Tensor,
@@ -86,9 +90,13 @@ class GCN(nn.Module):
         [in, R] -> [classes, R]).  ``hts`` = the (input-layer, hidden-layer)
         tensor sets, hybrid layouts or ELL/dense/COO ``GraphTensors``; the
         same one twice is fine."""
-        h = torch.relu(gcn_conv(x, self.conv1, hts[0]))
-        out = gcn_conv(h, self.conv2, hts[-1])
-        return torch.log_softmax(out, dim=0 if is_transposed(hts[0]) else 1)
+        h = gcn_conv(x, self.conv1, hts[0], layer=0)
+        with profiling.span("forward.layer0.relu"):
+            h = torch.relu(h)
+        out = gcn_conv(h, self.conv2, hts[-1], layer=1)
+        with profiling.span("forward.log_softmax"):
+            return torch.log_softmax(out,
+                                     dim=0 if is_transposed(hts[0]) else 1)
 
     def params_from_jax(self, params: Mapping[str, np.ndarray]) -> "GCN":
         """Carry weights across from the JAX model's ``{"conv1", "conv2"}``

@@ -24,6 +24,7 @@ from gnnadvisor_osdi21_tpu_torch.models.gcn import (
 from gnnadvisor_osdi21_tpu_torch.ops.aggregate import gin_conv, is_transposed
 from gnnadvisor_osdi21_tpu_torch.ops.graph_tensors import GraphTensors
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import HybridTensors
+from gnnadvisor_osdi21_tpu_torch.utils import profiling
 
 NUM_LAYERS = 5
 LAYER_NAMES = tuple(f"conv{i + 1}" for i in range(NUM_LAYERS))
@@ -33,7 +34,9 @@ class GIN(nn.Module):
     """Weights ``conv1 [in, hidden]``, ``conv2..conv4 [hidden, hidden]`` and
     ``conv5 [hidden, classes]``, drawn from ``generator`` (a CPU
     ``torch.Generator``; seed 0 when None) and placed on ``device`` (None:
-    the card)."""
+    the card), inside the span ``model.init``.  The forward's spans:
+    ``forward.layer<i>.aggregate``, ``.epsilon``, ``.gemm`` and ``.relu``,
+    and ``forward.log_softmax``."""
 
     def __init__(
         self,
@@ -45,14 +48,15 @@ class GIN(nn.Module):
         epsilon: float = 0.5,
     ):
         super().__init__()
-        dev = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        self.epsilon = epsilon
-        dims = [in_dim] + [hidden] * (NUM_LAYERS - 1) + [num_classes]
-        for i, name in enumerate(LAYER_NAMES):
-            w = _uniform_weight(dims[i], dims[i + 1], generator)
-            setattr(self, name, nn.Parameter(w.to(dev)))
+        with profiling.span("model.init"):
+            dev = resolve_device(device)
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            self.epsilon = epsilon
+            dims = [in_dim] + [hidden] * (NUM_LAYERS - 1) + [num_classes]
+            for i, name in enumerate(LAYER_NAMES):
+                w = _uniform_weight(dims[i], dims[i + 1], generator)
+                setattr(self, name, nn.Parameter(w.to(dev)))
 
     def forward(
         self, x: torch.Tensor,
@@ -65,10 +69,12 @@ class GIN(nn.Module):
         h = x
         for i, name in enumerate(LAYER_NAMES):
             ht = hts[0] if i == 0 else hts[-1]
-            h = gin_conv(h, getattr(self, name), ht, self.epsilon)
+            h = gin_conv(h, getattr(self, name), ht, self.epsilon, layer=i)
             if i < NUM_LAYERS - 1:
-                h = torch.relu(h)
-        return torch.log_softmax(h, dim=0 if is_transposed(hts[0]) else 1)
+                with profiling.span(f"forward.layer{i}.relu"):
+                    h = torch.relu(h)
+        with profiling.span("forward.log_softmax"):
+            return torch.log_softmax(h, dim=0 if is_transposed(hts[0]) else 1)
 
     def params_from_jax(self, params: Mapping[str, np.ndarray]) -> "GIN":
         """Carry weights across from the JAX model's ``{"conv1".."conv5"}``

@@ -7,7 +7,9 @@ flags and kept in ``_build/`` beside the package (the only place the port
 writes).  It is loaded with ``ctypes``: pointers and the
 CUDA stream travel as ``c_void_p``, and every C entry point returns
 ``cudaGetLastError()`` after its launch, which ``check`` turns into an
-exception.  Nothing here runs at import; the first CUDA launch builds.
+exception.  Nothing here runs at import; the first CUDA launch builds,
+inside the span ``kernels.load``; each build that runs ``nvcc`` adds one
+to the counter ``kernels.builds`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+
+from gnnadvisor_osdi21_tpu_torch.utils import profiling
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -105,6 +109,7 @@ def build() -> tuple[str, str]:
     if os.path.exists(so):
         return so, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    profiling.count("kernels.builds")
     nvcc, tag = _nvcc(), f"{os.getpid()}"
     objs = [
         os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
@@ -146,11 +151,12 @@ def _check_nvcc(cmd: list[str], returncode: int, output: str) -> None:
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    lib = ctypes.CDLL(build()[0])
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    with profiling.span("kernels.load"):
+        lib = ctypes.CDLL(build()[0])
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 

@@ -26,6 +26,7 @@ from gnnadvisor_osdi21_tpu_torch.ops.graph_tensors import GraphTensors
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import (
     HybridTensors, hybrid_aggregate,
 )
+from gnnadvisor_osdi21_tpu_torch.utils import profiling
 
 # Max bytes of materialized [parts, part_size, D] gather scratch per ELL
 # pass (the JAX package's budget); above it the pass runs over blocks of
@@ -209,25 +210,34 @@ def exact_f32_matmul() -> None:
 
 
 def gcn_conv(x: torch.Tensor, weight: torch.Tensor,
-             gt: HybridTensors | GraphTensors):
+             gt: HybridTensors | GraphTensors, layer: int = 0):
     """GCN layer Agg(X @ W) with deg[s]·deg[d] weighting (gnn_conv.py:31-78),
     Agg(W^T @ X_t) when transposed.  Autograd through the GEMM and
     ``aggregate`` gives the reference's backward: dX = Agg(g) @ W^T,
-    dW = X^T @ Agg(g)."""
-    h = _gemm(weight.t(), x, gt) if is_transposed(gt) else _gemm(x, weight, gt)
-    return aggregate(h, gt, True)
+    dW = X^T @ Agg(g).  Spans: ``forward.layer<layer>.gemm`` and
+    ``.aggregate``."""
+    with profiling.span(f"forward.layer{layer}.gemm"):
+        h = (_gemm(weight.t(), x, gt) if is_transposed(gt)
+             else _gemm(x, weight, gt))
+    with profiling.span(f"forward.layer{layer}.aggregate"):
+        return aggregate(h, gt, True)
 
 
 def gin_conv(
     x: torch.Tensor, weight: torch.Tensor, gt: HybridTensors | GraphTensors,
-    epsilon: float = 0.5,
+    epsilon: float = 0.5, layer: int = 0,
 ):
     """GIN layer (ε · Agg(X)) @ W: no normalization, no self term
     (gnn_conv.py:101-126), W^T @ (ε · Agg(X_t)) when transposed.  Autograd
     through ``aggregate`` and the GEMM gives the reference's backward
     (aggregate.py:262-283): dW = X_agg^T @ g from the saved X_agg, and
-    dX = ε · Agg(g @ W^T)."""
-    x_agg = epsilon * aggregate(x, gt, False)
-    if is_transposed(gt):
-        return _gemm(weight.t(), x_agg, gt)
-    return _gemm(x_agg, weight, gt)
+    dX = ε · Agg(g @ W^T).  Spans: ``forward.layer<layer>.aggregate``,
+    ``.epsilon`` and ``.gemm``."""
+    with profiling.span(f"forward.layer{layer}.aggregate"):
+        x_agg = aggregate(x, gt, False)
+    with profiling.span(f"forward.layer{layer}.epsilon"):
+        x_agg = epsilon * x_agg
+    with profiling.span(f"forward.layer{layer}.gemm"):
+        if is_transposed(gt):
+            return _gemm(weight.t(), x_agg, gt)
+        return _gemm(x_agg, weight, gt)

@@ -43,14 +43,16 @@ from __future__ import annotations
 import torch
 
 from gnnadvisor_osdi21_tpu_torch.ops import _build
+from gnnadvisor_osdi21_tpu_torch.utils import profiling
 from gnnadvisor_osdi21_tpu_torch.ops.probe_cuda import FEATURES, _check_2d
 from gnnadvisor_osdi21_tpu_torch.ops.spmm_cuda import _on_cpu, _stream
 
 KERNELS = ("stream_sum", "i8_slab", "bit_slab", "seg_reduce")
-# kernel name -> launches since the last reset_launches(); bit_slab counts
-# its bf16 variant, and its f32 variant (mul_f32dot) counts apart
+# kernel name -> launches since the last reset_launches(), the span
+# store's counters ``launches.<kernel>``; bit_slab counts its bf16
+# variant, and its f32 variant (mul_f32dot) counts apart
 BIT_SLAB_F32 = "bit_slab_f32"
-launches = dict.fromkeys(KERNELS + (BIT_SLAB_F32,), 0)
+launches = profiling.CounterView("launches.", KERNELS + (BIT_SLAB_F32,))
 
 LANES = 128  # the segment reduce's value lanes (one TPU vreg row)
 STRIP = 256  # block_rows must be a multiple (as the TPU grid steps, 512, 1024)
@@ -64,8 +66,7 @@ _SUM_SRC = {torch.int8: 0, torch.float32: 1, torch.uint32: 2}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    launches.update(dict.fromkeys(launches, 0))
 
 
 def unpack_rows32(bits: torch.Tensor) -> torch.Tensor:

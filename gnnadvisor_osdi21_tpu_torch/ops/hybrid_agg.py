@@ -33,6 +33,7 @@ import torch
 from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import HybridGraph
 from gnnadvisor_osdi21_tpu_torch.device import resolve_device
 from gnnadvisor_osdi21_tpu_torch.ops import spmm_cuda
+from gnnadvisor_osdi21_tpu_torch.utils import profiling
 
 AGG_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -269,20 +270,30 @@ def hybrid_aggregate(
 
     GCN weighting (``norm``): pre-scale x by sqrt-degree and post-scale
     the output, both dense, so no tier touches per-edge weights
-    (deg[s]·deg[d]·x[d] = deg[s]·(deg·x)[d])."""
+    (deg[s]·deg[d]·x[d] = deg[s]·(deg·x)[d]).
+
+    Spans: ``aggregate.passes`` around the dense passes before the tiers
+    (the scale, cast and, transposed, the row table) and after them (the
+    output's scale and cast), ``aggregate.tiers`` around the tiers."""
     out_dtype = x.dtype
     agg_dtype = AGG_DTYPES[ht.agg_dtype]
     if ht.transposed:
         deg = ht.degrees[None, :]
-        # the scale, the cast and the transpose in one pass
-        table = spmm_cuda.row_table_t(
-            x, agg_dtype, ht.degrees.to(x.dtype) if norm else None)
-        out = _tiers_transposed(table, x.shape[0], ht)
+        with profiling.span("aggregate.passes"):
+            # the scale, the cast and the transpose in one pass
+            table = spmm_cuda.row_table_t(
+                x, agg_dtype, ht.degrees.to(x.dtype) if norm else None)
+        with profiling.span("aggregate.tiers"):
+            out = _tiers_transposed(table, x.shape[0], ht)
     else:
         deg = ht.degrees[:, None]
+        with profiling.span("aggregate.passes"):
+            if norm:
+                x = x * deg.to(x.dtype)
+            x = x.to(agg_dtype).contiguous()
+        with profiling.span("aggregate.tiers"):
+            out = _tiers_rowmajor(x, ht)
+    with profiling.span("aggregate.passes"):
         if norm:
-            x = x * deg.to(x.dtype)
-        out = _tiers_rowmajor(x.to(agg_dtype).contiguous(), ht)
-    if norm:
-        out = out * deg
-    return out.to(out_dtype)
+            out = out * deg
+        return out.to(out_dtype)

@@ -46,11 +46,13 @@ from __future__ import annotations
 import torch
 
 from gnnadvisor_osdi21_tpu_torch.ops import _build
+from gnnadvisor_osdi21_tpu_torch.utils import profiling
 from gnnadvisor_osdi21_tpu_torch.ops.spmm_cuda import _on_cpu, _stream
 
 KERNELS = ("bit_slab_t", "i8_slab_t", "dense_slab")
-# kernel name -> launches since the last reset_launches()
-launches = dict.fromkeys(KERNELS, 0)
+# kernel name -> launches since the last reset_launches(): the span
+# store's counters ``launches.<kernel>``
+launches = profiling.CounterView("launches.", KERNELS)
 
 FEATURES = 16  # the kernels' feature width
 K_STEP = 16  # the MMA's k16 step: K must be a multiple
@@ -66,8 +68,7 @@ DENSE_DTYPES = (
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    launches.update(dict.fromkeys(launches, 0))
 
 
 def block_rows_for(br: int) -> int:

@@ -10,8 +10,9 @@ Each kernel has:
 - a wrapper that checks device, dtype, shape and contiguity, runs the
   plain version for CPU tensors only, and for CUDA tensors launches the
   hand-written kernel in ``csrc/`` or raises;
-- a launch count in ``launches``, raised by one each time the wrapper
-  launches its kernel and nowhere else.
+- a launch count in ``launches`` (the span store's counter
+  ``launches.<kernel>``, ``utils/profiling.py``), raised by one each time
+  the wrapper launches its kernel and nowhere else.
 
 TPU kernels replaced (gnnadvisor_osdi21_tpu/ops/spmm_pallas.py), features
 transposed ``[D, R]``: ``slab_matmul_t`` (:469) and ``fused_slab_matmul_t``
@@ -44,21 +45,22 @@ from __future__ import annotations
 import torch
 
 from gnnadvisor_osdi21_tpu_torch.ops import _build
+from gnnadvisor_osdi21_tpu_torch.utils import profiling
 
 KERNELS = (
     "slab_matmul_t", "fused_slab_matmul_t", "residual_combine_t",
     "slab_matmul", "fused_slab_matmul", "residual_combine",
 )
-# kernel name -> launches since the last reset_launches()
-launches = dict.fromkeys(KERNELS, 0)
+# kernel name -> launches since the last reset_launches(): the span
+# store's counters ``launches.<kernel>``
+launches = profiling.CounterView("launches.", KERNELS)
 
 FEATURE_DTYPES = (torch.float32, torch.bfloat16)
 MAX_RES_TILE = 256  # slots per residual tile the CUDA kernels stage
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    launches.update(dict.fromkeys(launches, 0))
 
 
 def _round_up(x: int, m: int) -> int:

@@ -19,7 +19,12 @@ The port of ``gnnadvisor_osdi21_tpu/train.py``:
   (``make_captured_step``) and the timed epochs replay it, so that the
   host issues one graph launch a step instead of each kernel;
 - checkpoint/resume in the JAX package's ``.npz`` schema
-  (``utils/checkpoint.py``).
+  (``utils/checkpoint.py``);
+- spans (``utils/profiling.py``): ``optimizer.init``, ``warm_up`` and its
+  timed last step ``warm_up.timed_step`` (``warm_up``), ``capture``; in a
+  step ``loss``, ``backward`` and ``adam`` beside the model's own; a
+  replay of the captured step opens ``step.replay`` under a profiler
+  only.
 
 Models: the 2-layer GCN and the 5-layer GIN, on a transposed or a
 row-major hybrid layout or on the ELL, dense and COO tensors (row-major,
@@ -44,6 +49,7 @@ from gnnadvisor_osdi21_tpu_torch.ops.aggregate import (
 )
 from gnnadvisor_osdi21_tpu_torch.ops.graph_tensors import GraphTensors
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import HybridTensors
+from gnnadvisor_osdi21_tpu_torch.utils import profiling
 from gnnadvisor_osdi21_tpu_torch.utils.checkpoint import (
     load_checkpoint, opt_state_from_torch, opt_state_to_torch,
     save_checkpoint,
@@ -121,9 +127,10 @@ def make_optimizer(net: torch.nn.Module, lr: float = 0.01) -> torch.optim.Adam:
     that a step can be captured and a step-by-step loop computes the same
     update.  On the CPU, where capturable Adam does not run, the host
     computes the bias correction (in f64)."""
-    on_card = next(net.parameters()).is_cuda
-    return torch.optim.Adam(net.parameters(), lr=lr, betas=(0.9, 0.999),
-                            eps=1e-8, capturable=on_card)
+    with profiling.span("optimizer.init"):
+        on_card = next(net.parameters()).is_cuda
+        return torch.optim.Adam(net.parameters(), lr=lr, betas=(0.9, 0.999),
+                                eps=1e-8, capturable=on_card)
 
 
 def make_train_step(
@@ -139,9 +146,13 @@ def make_train_step(
 
     def step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        loss = nll_loss(net(x, hts), y, mask, transposed)
-        loss.backward()
-        optimizer.step()
+        log_probs = net(x, hts)
+        with profiling.span("loss"):
+            loss = nll_loss(log_probs, y, mask, transposed)
+        with profiling.span("backward"):
+            loss.backward()
+        with profiling.span("adam"):
+            optimizer.step()
         return loss.detach()
 
     return step
@@ -174,7 +185,11 @@ class CapturedStep:
             raise RuntimeError(
                 f"the captured step's loss history holds "
                 f"{self.history.numel()} replays")
-        self.graph.replay()
+        if profiling.profiler_active():
+            with profiling.span("step.replay"):
+                self.graph.replay()
+        else:
+            self.graph.replay()
         self.replays += 1
 
     def losses(self) -> list[float]:
@@ -194,32 +209,57 @@ def capture_step(
     attributes exist before capture.  A step that cannot be captured (a
     host synchronisation inside it) raises; nothing falls back to running
     it eagerly.  ``capacity``: the replays whose losses the history keeps;
-    ``capture_error_mode``: ``torch.cuda.graph``'s."""
-    history = torch.zeros(capacity, dtype=torch.float32, device=device)
-    slot = torch.zeros(1, dtype=torch.int64, device=device)
-    graph = torch.cuda.CUDAGraph()
-    before = dict(spmm_cuda.launches)
-    with torch.cuda.graph(graph, capture_error_mode=capture_error_mode):
-        loss = step()
-        history.index_copy_(0, slot, loss.view(1))
-        slot.add_(1)
-    launches = {k: spmm_cuda.launches[k] - before[k] for k in before}
+    ``capture_error_mode``: ``torch.cuda.graph``'s.  Span: ``capture``;
+    the step's own spans record host times and no event."""
+    with profiling.span("capture"):
+        history = torch.zeros(capacity, dtype=torch.float32, device=device)
+        slot = torch.zeros(1, dtype=torch.int64, device=device)
+        graph = torch.cuda.CUDAGraph()
+        before = dict(spmm_cuda.launches)
+        with torch.cuda.graph(graph, capture_error_mode=capture_error_mode):
+            loss = step()
+            history.index_copy_(0, slot, loss.view(1))
+            slot.add_(1)
+        launches = {k: spmm_cuda.launches[k] - before[k] for k in before}
     return CapturedStep(graph, history, launches, keep=(slot,))
+
+
+TIMED_STEP = "warm_up.timed_step"
+# the card's hold before the timed step: HOLD_FACTOR times the host seconds
+# of the step before it, plus HOLD_MIN_S, at most HOLD_MAX_S
+HOLD_FACTOR, HOLD_MIN_S, HOLD_MAX_S = 4.0, 0.005, 0.5
 
 
 def warm_up(step: Callable[[], torch.Tensor], n: int,
             device: torch.device) -> list[torch.Tensor]:
     """Run ``step()`` ``n`` times before a capture, on a side stream as
     CUDA-graph capture asks (eagerly, where ``device`` is the CPU); returns
-    the losses."""
-    if device.type != "cuda":
-        return [step() for _ in range(n)]
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        losses = [step() for _ in range(n)]
-    torch.cuda.current_stream(device).wait_stream(side)
-    return losses
+    the losses.  Span: ``warm_up``.
+
+    The last of two or more steps is the timed step, span ``TIMED_STEP``:
+    on the card it runs inside ``profiling.device_timed``, behind a hold
+    on the card sized from the host seconds of the step before it, so
+    that every span inside it gets the card's seconds, back to back as
+    in a replay; on the CPU its spans take the host clock alone."""
+    with profiling.span("warm_up"):
+        on_card = device.type == "cuda"
+        side = torch.cuda.Stream(device) if on_card else None
+        if on_card:
+            side.wait_stream(torch.cuda.current_stream(device))
+        losses, last_s = [], 0.0
+        with torch.cuda.stream(side):  # None: no stream to enter
+            for i in range(n):
+                if i == n - 1 and n >= 2:
+                    hold = min(HOLD_FACTOR * last_s + HOLD_MIN_S, HOLD_MAX_S)
+                    losses.append(profiling.device_timed(
+                        step, TIMED_STEP, hold, on_card))
+                else:
+                    t = time.perf_counter()
+                    losses.append(step())
+                    last_s = time.perf_counter() - t
+        if on_card:
+            torch.cuda.current_stream(device).wait_stream(side)
+        return losses
 
 
 def make_captured_step(

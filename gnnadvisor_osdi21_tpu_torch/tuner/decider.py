@@ -53,6 +53,7 @@ from gnnadvisor_osdi21_tpu_torch.ops.graph_tensors import (
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import (
     HybridTensors, build_layer_tensors,
 )
+from gnnadvisor_osdi21_tpu_torch.utils import profiling
 
 METHODS = graph_tensors.METHODS + ("hybrid",)
 DENSE_MAX_NODES = 4096  # above this, an N×N adjacency stops being a win
@@ -159,7 +160,13 @@ class InputProperty:
     def decider(self) -> "InputProperty":
         """Pick the method, part size, reordering and tiers; manual mode
         passes user values through (param.py:58-70).  The reorder comes
-        first (param.py:110): the tiers measure the reordered locality."""
+        first (param.py:110): the tiers measure the reordered locality.
+        Spans: ``decider``, around ``decider.reorder`` and
+        ``decider.choose_tiers``."""
+        with profiling.span("decider"):
+            return self._decide()
+
+    def _decide(self) -> "InputProperty":
         if self.manual_mode:
             method = self.method or "ell"
             ps = self.part_size or 32
@@ -174,17 +181,19 @@ class InputProperty:
         if method not in METHODS:
             raise ValueError(f"unknown aggregation method: {method}")
         if self.reorder_status:
-            self.graph = reorder.rabbit_reorder_graph(self.graph)
+            with profiling.span("decider.reorder"):
+                self.graph = reorder.rabbit_reorder_graph(self.graph)
         if method == "hybrid":
             g = self.graph
-            src = np.repeat(
-                np.arange(g.num_nodes, dtype=np.int64),
-                np.diff(np.asarray(g.row_pointers, dtype=np.int64)),
-            )
-            self.diag_b, self.hot_k = choose_tiers(
-                src, np.asarray(g.column_index, dtype=np.int64), g.num_nodes,
-                hot_k=self.hot_k, diag_b=self.diag_b,
-            )
+            with profiling.span("decider.choose_tiers"):
+                src = np.repeat(
+                    np.arange(g.num_nodes, dtype=np.int64),
+                    np.diff(np.asarray(g.row_pointers, dtype=np.int64)),
+                )
+                self.diag_b, self.hot_k = choose_tiers(
+                    src, np.asarray(g.column_index, dtype=np.int64),
+                    g.num_nodes, hot_k=self.hot_k, diag_b=self.diag_b,
+                )
         self.layer_input = LayerConfig(method, ps, self.input_dim)
         self.layer_hidden = LayerConfig(method, ps, self.hidden_dim)
         if self.verbose:
@@ -204,9 +213,14 @@ class InputProperty:
         one method and part size, and the hybrid residual kernels gather
         by ``res_src`` at any width.  The hybrid method also builds the
         padded-row layout (``pad_features``/``unpad_outputs`` move node
-        data in and out)."""
+        data in and out).  Spans: ``layout``, around the hybrid layout's
+        (``graphs/hybrid.build_hybrid``) and ``layout.to_device``."""
         if self.layer_input is None:
             raise RuntimeError("call decider() first")
+        with profiling.span("layout"):
+            return self._build_tensors(device)
+
+    def _build_tensors(self, device):
         dev = resolve_device(device)
         li = self.layer_input
         if li.method != "hybrid":
@@ -218,10 +232,11 @@ class InputProperty:
                 )
                 if self.verbose:
                     print(f"# ell padding waste: {groups.padding_waste:.3f}")
-            gt = build_graph_tensors(
-                self.graph, method=li.method, groups=groups, device=dev,
-                gemm_dtype=self.gemm_dtype,
-            )
+            with profiling.span("layout.to_device"):
+                gt = build_graph_tensors(
+                    self.graph, method=li.method, groups=groups, device=dev,
+                    gemm_dtype=self.gemm_dtype,
+                )
             return gt, gt
         # the user's values, not the decider's: build_hybrid re-prices the
         # tiers at the residual geometry it builds, as the JAX build does,
@@ -238,11 +253,12 @@ class InputProperty:
         if self.verbose:
             print(f"# tier probe: {hg.tier_probe}; built tiers diag_b="
                   f"{hg.diag_b} hot_k={hg.hot_k}")
-        return build_layer_tensors(
-            hg, device=dev, agg_dtype=self.agg_dtype,
-            transposed=self.transposed is not False,
-            gemm_dtype=self.gemm_dtype,
-        )
+        with profiling.span("layout.to_device"):
+            return build_layer_tensors(
+                hg, device=dev, agg_dtype=self.agg_dtype,
+                transposed=self.transposed is not False,
+                gemm_dtype=self.gemm_dtype,
+            )
 
     def agg_dims(self) -> tuple[int, int]:
         """The widths the input and hidden layers aggregate at
