@@ -101,7 +101,7 @@ DIAG_CANDIDATES = (0, 512, 1024, 2048, 4096)
 HOT_CANDIDATES = (0, 512, 1024, 2048, 4096)
 
 # Above this many off-diagonal edges the tier census samples whole output
-# blocks instead of sorting every edge key (choose_tiers docstring) —
+# blocks instead of counting every edge's pair (rank_tiers docstring) —
 # keeps layout build O(seconds) at ogbn-products scale (~123M edges).
 CENSUS_EDGE_LIMIT = 10_000_000
 
@@ -210,6 +210,134 @@ def choose_hot_k(
     return best_k
 
 
+def _id_dtype(num_nodes: int):
+    return np.int32 if num_nodes <= np.iinfo(np.int32).max else np.int64
+
+
+class EdgeCensus:
+    """A graph's edges in destination-major order, ``(dst, src)``
+    ascending, from one sort: what the tier census counts.
+
+    In that order the unique (``src // ob``, dst) pairs of any subset of
+    the edges that keeps the order are the starts of its runs (a pair
+    starts where dst or ``src // ob`` changes), so each candidate's pair
+    census is one linear pass (``pair_census``, ``block_pairs``), not a
+    sort of its keys.  Ids are int32 where they fit.  The census also
+    keeps the ranked lists ``rank_tiers`` priced over it (``ranked``), so
+    that a repeat of one call is served without pricing it again.  Build
+    one per graph and pass it on; ``subset`` gives the census of some of
+    its edges.
+
+    Counters: ``census.sorts`` (censuses sorted), ``census.passes``
+    (candidate passes counted), ``census.reused`` (ranked lists served
+    again).  Spans: ``census.sort`` here, ``census.rank`` in
+    ``rank_tiers``."""
+
+    def __init__(self, src, dst, num_nodes: int, *, ordered: bool = False):
+        """The census of the edges ``src[i] -> dst[i]``; ``ordered``: they
+        are already in destination-major order (no sort)."""
+        self.num_nodes = num_nodes
+        ids = _id_dtype(num_nodes)
+        if ordered:
+            self.src = np.asarray(src, dtype=ids)
+            self.dst = np.asarray(dst, dtype=ids)
+        else:
+            with profiling.span("census.sort"):
+                key = np.asarray(dst, dtype=np.int64) * np.int64(num_nodes + 1)
+                key += np.asarray(src, dtype=np.int64)
+                key.sort()
+                d, s = np.divmod(key, np.int64(num_nodes + 1))
+                self.dst, self.src = d.astype(ids), s.astype(ids)
+            profiling.count("census.sorts")
+        self.ranked: dict = {}
+
+    @classmethod
+    def of_graph(cls, graph: GraphCSR) -> "EdgeCensus":
+        n = graph.num_nodes
+        rp = np.asarray(graph.row_pointers, dtype=np.int64)
+        src = np.repeat(np.arange(n, dtype=_id_dtype(n)), np.diff(rp))
+        return cls(src, graph.column_index, n)
+
+    def __len__(self) -> int:
+        return len(self.dst)
+
+    def subset(self, keep: np.ndarray) -> "EdgeCensus":
+        """The census of the edges ``keep`` (a mask in this order) selects."""
+        return EdgeCensus(self.src[keep], self.dst[keep], self.num_nodes,
+                          ordered=True)
+
+    def off_diagonal(self, diag_b: int) -> np.ndarray:
+        """Mask of the edges whose endpoints lie in different ``diag_b``
+        blocks (all edges where ``diag_b`` is 0)."""
+        if not diag_b:
+            return np.ones(len(self), dtype=bool)
+        return self.src // diag_b != self.dst // diag_b
+
+    def pair_census(self, diag_b: int, ob: int):
+        """``(off_dst, pairs_per_dst, pairs, stride)``: the destinations of
+        the edges off the ``diag_b`` diagonal (all edges where 0), and the
+        unique (``src // ob``, dst) pairs among them, per destination
+        (``[num_nodes]``) and in all.  Above ``CENSUS_EDGE_LIMIT`` such
+        edges the pairs are those of a pseudo-random (hash-selected)
+        1/``stride`` of whole ``ob``-blocks (``rank_tiers``)."""
+        if diag_b:
+            keep = self.off_diagonal(diag_b)
+            off_dst, blk = self.dst[keep], self.src[keep] // ob
+        else:
+            off_dst, blk = self.dst, self.src // ob
+        stride, dst = 1, off_dst
+        if len(off_dst) > CENSUS_EDGE_LIMIT:
+            stride = -(-len(off_dst) // CENSUS_EDGE_LIMIT)
+            # pseudo-random block sample via a multiplicative hash —
+            # NOT blk % stride, which would always keep block 0 and bias
+            # toward whatever structure lives at low node ids after
+            # reordering (communities/hubs)
+            ids = np.arange(self.num_nodes // ob + 1, dtype=np.int64)
+            h = (ids * np.int64(2654435761)) & np.int64(0xFFFFFFFF)
+            sel = ((h % stride) == 0)[blk]
+            dst, blk = off_dst[sel], blk[sel]
+        start = _pair_starts(dst, blk)
+        pairs_per_dst = np.bincount(dst[start], minlength=self.num_nodes)
+        return off_dst, pairs_per_dst, int(np.count_nonzero(start)), stride
+
+    def block_pairs(self, ob: int) -> np.ndarray:
+        """Unique (``src // ob``, dst) pairs per ``ob``-block, up to the
+        last block with an edge."""
+        blk = self.src // ob
+        return np.bincount(blk[_pair_starts(self.dst, blk)])
+
+    def residual(self, diag_b: int, hot_k: int) -> "EdgeCensus":
+        """The census of the residual tier's edges: neither on the
+        diagonal nor into one of the ``hot_k`` hot destinations."""
+        keep = self.off_diagonal(diag_b)
+        if hot_k:
+            hot = np.zeros(self.num_nodes, dtype=bool)
+            hot[hot_rows(self.dst[keep], self.num_nodes, hot_k)] = True
+            keep &= ~hot[self.dst]
+        return self.subset(keep)
+
+
+def hot_rows(off_dst: np.ndarray, num_nodes: int, hot_k: int) -> np.ndarray:
+    """The hot tier's destinations: the ``hot_k`` most frequent in
+    ``off_dst`` (the off-diagonal edges' destinations), most frequent
+    first, less those with no edge; int32."""
+    counts = np.bincount(off_dst, minlength=num_nodes)
+    top = np.argsort(counts)[::-1][:hot_k].astype(np.int32)
+    return top[counts[top] > 0]
+
+
+def _pair_starts(dst: np.ndarray, blk: np.ndarray) -> np.ndarray:
+    """Mask of the first edge of each unique (``blk``, dst) pair, for
+    edges in destination-major order (``blk`` non-decreasing within each
+    destination): where dst or ``blk`` changes."""
+    start = np.empty(len(dst), dtype=bool)
+    start[:1] = True
+    np.not_equal(dst[1:], dst[:-1], out=start[1:])
+    start[1:] |= blk[1:] != blk[:-1]
+    profiling.count("census.passes")
+    return start
+
+
 def choose_tiers(
     src: np.ndarray,
     dst: np.ndarray,
@@ -217,12 +345,11 @@ def choose_tiers(
     hot_k: int | None = None,
     diag_b: int | None = None,
     res_ob: int = 1024,
+    census: EdgeCensus | None = None,
 ) -> tuple[int, int]:
     """Model-ranked tier choice: ``rank_tiers(...)[0]`` (see there)."""
     ranked = rank_tiers(src, dst, num_nodes, hot_k=hot_k, diag_b=diag_b,
-                        res_ob=res_ob)
-    if not ranked:
-        return (diag_b or 0, hot_k or 0)
+                        res_ob=res_ob, census=census)
     return ranked[0][1], ranked[0][2]
 
 
@@ -233,6 +360,7 @@ def rank_tiers(
     hot_k: int | None = None,
     diag_b: int | None = None,
     res_ob: int = 1024,
+    census: EdgeCensus | None = None,
 ) -> list[tuple[float, int, int]]:
     """Rank every feasible (diag_b, hot_k) candidate by the measured
     pipeline cost model — ascending ``(cost_ns, diag_b, hot_k)``.
@@ -248,22 +376,45 @@ def rank_tiers(
     (out-block, dst) pair and unique dst counts — the quantities the
     residual kernel actually pays for.  (An earlier coarse pass with a
     fixed dedup estimate systematically under-ranked small tiers, whose
-    residuals dedup 3-5x.)  The census costs ONE sort per diag candidate:
-    hot sets are nested along the in-degree order, so every hot_k
-    candidate reads its pair count off a cumulative sum, and the stage-1
+    residuals dedup 3-5x.)  The census is ONE linear pass over the
+    edges in destination-major order per diag candidate (``census``, the
+    ``EdgeCensus`` of ``src -> dst``; built from them when None): hot
+    sets are nested along the in-degree order, so every hot_k candidate
+    reads its pair count off a cumulative sum, and the stage-1
     unique-dst count follows from the degree histogram alone.  Above
     ``CENSUS_EDGE_LIMIT`` edges the pair census samples a pseudo-random
     (hash-selected) 1/stride of whole output blocks — pairs partition by
     block, so ``stride x sampled-count`` is unbiased over the block
     sample; below the limit the census is exact.  Fixing either
     parameter (manual mode) restricts the search to the other; fixing
-    both passes through (param.py:58-70).
+    both passes through (param.py:58-70).  A list already priced over
+    ``census`` with the same arguments is served again.
     """
     e = len(src)
     if e == 0:
         return [(0.0, diag_b or 0, hot_k or 0)]
     if diag_b is not None and hot_k is not None:
         return [(0.0, diag_b, hot_k)]
+    if census is None:
+        census = EdgeCensus(src, dst, num_nodes)
+    memo = (diag_b, hot_k, res_ob)
+    if memo in census.ranked:
+        profiling.count("census.reused")
+    else:
+        with profiling.span("census.rank"):
+            census.ranked[memo] = _price_tiers(
+                census, num_nodes, hot_k, diag_b, res_ob)
+    return list(census.ranked[memo])
+
+
+def _price_tiers(
+    census: EdgeCensus,
+    num_nodes: int,
+    hot_k: int | None,
+    diag_b: int | None,
+    res_ob: int,
+) -> list[tuple[float, int, int]]:
+    """``rank_tiers``' pricing over its census (see there)."""
     b_cands = DIAG_CANDIDATES if diag_b is None else (diag_b,)
     cands: list[tuple[float, int, int]] = []
     for b in b_cands:
@@ -271,35 +422,13 @@ def rank_tiers(
         # passes through (build_hybrid rounds num_rows up to it)
         if b and b > _round_up(num_nodes, 512) and diag_b is None:
             continue
-        if b:
-            off = src // b != dst // b
-            od, osrc = dst[off], src[off]
-        else:
-            od, osrc = dst, src
         rows = _round_up(max(num_nodes, 1), max(b, 512))
+        # --- pair census, shared by every hot_k candidate ----------------
+        od, pairs_per_dst, u_total, stride = census.pair_census(b, res_ob)
         # hot curve on off-diagonal edges only: hubs that are mostly local
         # do not earn a hot column
         counts = np.bincount(od, minlength=num_nodes)
         order = np.argsort(counts)[::-1]
-        # --- pair census, shared by every hot_k candidate ----------------
-        blk = osrc // res_ob
-        if len(od) > CENSUS_EDGE_LIMIT:
-            stride = -(-len(od) // CENSUS_EDGE_LIMIT)
-            # pseudo-random block sample via a multiplicative hash —
-            # NOT blk % stride, which would always keep block 0 and bias
-            # toward whatever structure lives at low node ids after
-            # reordering (communities/hubs)
-            h = (blk * np.int64(2654435761)) & np.int64(0xFFFFFFFF)
-            sel = (h % stride) == 0
-            keys = blk[sel] * np.int64(num_nodes + 1) + od[sel]
-        else:
-            stride = 1
-            keys = blk * np.int64(num_nodes + 1) + od
-        ukeys = np.unique(keys)
-        pairs_per_dst = np.bincount(
-            ukeys % np.int64(num_nodes + 1), minlength=num_nodes
-        )
-        u_total = len(ukeys)
         # making a dst hot removes ALL its pairs and its stage-1 gather row
         cum_pairs = np.cumsum(pairs_per_dst[order])
         nz_dst = int(np.count_nonzero(counts))
@@ -418,6 +547,7 @@ def model_pipeline_ns(hg: HybridGraph) -> dict:
 def choose_res_geometry(
     rs: np.ndarray, rd: np.ndarray, num_nodes: int,
     row_align: int = 512, row_cost_ns: float = 0.0,
+    census: EdgeCensus | None = None,
 ) -> tuple[int, int]:
     """Pick (res_ob, res_tile) for the residual tier from its exact pair
     census: cost = slots·(GATHER_SLOT + SLAB_B·OB) + tiles·step_overhead,
@@ -432,15 +562,18 @@ def choose_res_geometry(
     build_hybrid) — every extra padded row pays the slab pipeline's
     per-output-column cost, so a big ob must EARN its padding on small
     graphs (ADVICE r3: choose_tiers and this chooser were priced against
-    inconsistent layouts)."""
+    inconsistent layouts).
+
+    ``census``: the ``EdgeCensus`` of ``rs -> rd`` (built from them when
+    None); each candidate's census is one linear pass over it."""
     if not len(rs):
         return 1024, 256
+    if census is None:
+        census = EdgeCensus(rs, rd, num_nodes)
     base_rows = _round_up(max(num_nodes, 1), row_align)
     best = None
     for ob in RES_OB_CANDIDATES:
-        key = (rs // ob) * np.int64(num_nodes + 1) + rd
-        ukey = np.unique(key)
-        counts_b = np.bincount(ukey // (num_nodes + 1))
+        counts_b = census.block_pairs(ob)
         pad_rows = _round_up(max(num_nodes, 1), max(row_align, ob)) - base_rows
         for rt in RES_TILE_CANDIDATES:
             slots = int((-(-counts_b // rt) * rt).sum())
@@ -455,6 +588,48 @@ def choose_res_geometry(
     return best[1], best[2]
 
 
+def choose_layout_tiers(
+    census: EdgeCensus | None,
+    num_nodes: int,
+    diag_b: int | None = None,
+    hot_k: int | None = None,
+    res_tile: int | None = None,
+    res_ob: int | None = None,
+    row_align: int = 512,
+) -> tuple[int, int, int, int, list[tuple[float, int, int]]]:
+    """``(diag_b, hot_k, res_ob, res_tile, ranked)`` of a layout: the
+    values given, and the model's choice for those left None, over the
+    graph's ``census`` (None only where nothing is left to choose).
+
+    Tier choice and residual geometry feed each other (``rank_tiers``
+    prices the pair census at a given res_ob; the chosen ob in turn
+    changes which tiers pay off), so iterate to a consistent fixed point
+    — at most two passes, since the second pass re-prices at the geometry
+    the layout will actually be built with (ADVICE r3).  The geometry
+    chooser is charged the padded-row cost the chosen diag block implies.
+    ``ranked`` is the last pass's ranking, for the tier probe."""
+    if census is None:  # nothing is left to choose
+        return diag_b, hot_k, res_ob, res_tile, [(0.0, diag_b, hot_k)]
+    census_ob = res_ob or 1024
+    for _ in range(2):
+        ranked = rank_tiers(census.src, census.dst, num_nodes, hot_k=hot_k,
+                            diag_b=diag_b, res_ob=census_ob, census=census)
+        b, k = ranked[0][1], ranked[0][2]
+        if res_ob is None or res_tile is None:
+            rc = census.residual(b, k)
+            auto_ob, auto_rt = choose_res_geometry(
+                rc.src, rc.dst, num_nodes, row_align=max(b, row_align),
+                row_cost_ns=SLAB_A_NS + SLAB_B_NS * (b + k), census=rc,
+            )
+            chosen_ob, chosen_rt = res_ob or auto_ob, res_tile or auto_rt
+        else:
+            chosen_ob, chosen_rt = res_ob, res_tile
+        if chosen_ob == census_ob:
+            break
+        census_ob = chosen_ob  # re-price the tiers at the real geometry
+    return b, k, chosen_ob, chosen_rt, ranked
+
+
 def build_hybrid(
     graph: GraphCSR,
     hot_k: int | None = None,
@@ -464,6 +639,7 @@ def build_hybrid(
     row_align: int = 512,
     probe: bool | None = None,
     device=None,
+    census: EdgeCensus | None = None,
 ) -> HybridGraph:
     """Build the three-tier layout.  ``hot_k``/``diag_b`` default to the
     measured-cost-model choice (``choose_tiers``); ``res_ob``/``res_tile``
@@ -477,69 +653,44 @@ def build_hybrid(
     ``device`` (None: the card); False trusts the model.  With the probe
     off the layout equals the JAX package's ``build_hybrid(...,
     probe=False)``.
+
+    ``census``: the graph's ``EdgeCensus`` (``EdgeCensus.of_graph``, built
+    here when None and a choice is left to the model); a ranked list
+    already priced over it (the decider's) is not priced again.
     """
     n = graph.num_nodes
+    if diag_b is not None and diag_b % 512:
+        raise ValueError(f"diag_b {diag_b} must be a multiple of 512")
+    if hot_k is not None and hot_k % 32:
+        raise ValueError(f"hot_k {hot_k} must be a multiple of 32")
+    in_diag_b, in_hot_k = diag_b, hot_k  # user-fixed (None = auto)
+    in_res_tile, in_res_ob = res_tile, res_ob
     with profiling.span("layout.tiers"):
+        if census is None and None in (diag_b, hot_k, res_ob, res_tile):
+            census = EdgeCensus.of_graph(graph)
+        diag_b, hot_k, res_ob, res_tile, ranked = choose_layout_tiers(
+            census, n, diag_b=diag_b, hot_k=hot_k, res_tile=res_tile,
+            res_ob=res_ob, row_align=row_align,
+        )
         rp = np.asarray(graph.row_pointers, dtype=np.int64)
         ci = np.asarray(graph.column_index, dtype=np.int64)
         src = np.repeat(np.arange(n, dtype=np.int64), np.diff(rp))
 
-        # Tier choice and residual geometry feed each other (choose_tiers
-        # prices the pair census at a given res_ob; the chosen ob in turn
-        # changes which tiers pay off), so iterate to a consistent fixed
-        # point — at most two passes, since the second pass re-prices at the
-        # geometry the layout will actually be built with (ADVICE r3).
-        in_diag_b, in_hot_k = diag_b, hot_k  # user-fixed (None = auto)
-        in_res_tile, in_res_ob = res_tile, res_ob
-        census_ob = res_ob or 1024
-        for _ in range(2):
-            ranked = rank_tiers(
-                src, ci, n, hot_k=in_hot_k, diag_b=in_diag_b, res_ob=census_ob
-            )
-            diag_b, hot_k = (ranked[0][1], ranked[0][2]) if ranked else (
-                in_diag_b or 0, in_hot_k or 0
-            )
-            if diag_b % 512:
-                raise ValueError(f"diag_b {diag_b} must be a multiple of 512")
-
-            # --- classify edges: diag > hot > residual ----------------------
-            if diag_b:
-                in_diag = (src // diag_b) == (ci // diag_b)
-            else:
-                in_diag = np.zeros(len(src), dtype=bool)
-
-            if hot_k:
-                if hot_k % 32:
-                    raise ValueError(
-                        f"hot_k {hot_k} must be a multiple of 32")
-                counts = np.bincount(ci[~in_diag], minlength=n)
-                top = np.argsort(counts)[::-1][:hot_k].astype(np.int32)
-                # columns with no edges stay padding
-                top = top[counts[top] > 0]
-                hot_col = np.full(n, -1, dtype=np.int64)
-                hot_col[top] = np.arange(len(top))
-                in_hot = (~in_diag) & (hot_col[ci] >= 0)
-            else:
-                top = np.zeros(0, dtype=np.int32)
-                in_hot = np.zeros(len(src), dtype=bool)
-
-            in_res = ~(in_diag | in_hot)
-
-            # --- residual geometry (input-adaptive) -------------------------
-            if res_ob is None or res_tile is None:
-                auto_ob, auto_rt = choose_res_geometry(
-                    src[in_res], ci[in_res], n,
-                    row_align=max(diag_b, row_align),
-                    row_cost_ns=SLAB_A_NS + SLAB_B_NS * (diag_b + hot_k),
-                )
-                chosen_ob = res_ob or auto_ob
-                chosen_rt = res_tile or auto_rt
-            else:
-                chosen_ob, chosen_rt = res_ob, res_tile
-            if chosen_ob == census_ob:
-                break
-            census_ob = chosen_ob  # re-price the tiers at the real geometry
-        res_ob, res_tile = chosen_ob, chosen_rt
+        # --- classify edges: diag > hot > residual --------------------------
+        if diag_b:
+            in_diag = (src // diag_b) == (ci // diag_b)
+        else:
+            in_diag = np.zeros(len(src), dtype=bool)
+        if hot_k:
+            # columns with no edges stay padding
+            top = hot_rows(ci[~in_diag], n, hot_k)
+            hot_col = np.full(n, -1, dtype=np.int64)
+            hot_col[top] = np.arange(len(top))
+            in_hot = (~in_diag) & (hot_col[ci] >= 0)
+        else:
+            top = np.zeros(0, dtype=np.int32)
+            in_hot = np.zeros(len(src), dtype=bool)
+        in_res = ~(in_diag | in_hot)
     num_rows = _round_up(max(n, 1), max(diag_b, res_ob, row_align))
 
     if hot_k:
@@ -625,6 +776,7 @@ def build_hybrid(
             hg = _maybe_probe_tiers(
                 graph, hg, ranked, probe, device,
                 res_tile=in_res_tile, res_ob=in_res_ob, row_align=row_align,
+                census=census,
             )
             rec.attrs["tiers"] = hg.tier_probe
     return hg
@@ -740,13 +892,15 @@ def _maybe_probe_tiers(
     res_tile: int | None,
     res_ob: int | None,
     row_align: int,
+    census: EdgeCensus | None = None,
 ) -> HybridGraph:
     """Probe the model's top tier candidates on ``device``; return the
     measured winner (``hg`` where probing is not warranted).  The model's
     pick is the first candidate, and a challenger must beat it by more
     than ``PROBE_MARGIN``.  Verdicts are cached (``_probe_cache_path``)
     under the device's name and the graph's fingerprint.  The layout
-    returned records how its tiers were chosen (``tier_probe``)."""
+    returned records how its tiers were chosen (``tier_probe``).  The
+    candidates' layouts are built over ``census``, the graph's."""
     cands = list(ranked[:PROBE_TOP])
     if len(cands) < 2:
         return hg
@@ -767,7 +921,7 @@ def _maybe_probe_tiers(
         if (b, k) != (hg.diag_b, hg.hot_k):
             hg = build_hybrid(
                 graph, hot_k=k, diag_b=b, res_tile=res_tile, res_ob=res_ob,
-                row_align=row_align, probe=False,
+                row_align=row_align, probe=False, census=census,
             )
         hg.tier_probe = "cached"
         return hg
@@ -775,7 +929,7 @@ def _maybe_probe_tiers(
     for _, b, k in cands:
         cand = hg if (b == hg.diag_b and k == hg.hot_k) else build_hybrid(
             graph, hot_k=k, diag_b=b, res_tile=res_tile, res_ob=res_ob,
-            row_align=row_align, probe=False,
+            row_align=row_align, probe=False, census=census,
         )
         sec = _probe_spmm_time(cand, device)
         profiling.count("probe.runs")

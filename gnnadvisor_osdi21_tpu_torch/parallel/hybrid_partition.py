@@ -32,11 +32,9 @@ from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import (
     GATHER_SLOT_NS,
     RES_SINGLE_MAX_CELLS,
     RES_STAGE2_FIX_NS,
-    SLAB_A_NS,
-    SLAB_B_NS,
+    EdgeCensus,
     build_residual_stream,
-    choose_res_geometry,
-    choose_tiers,
+    choose_layout_tiers,
     pack_slab_bits_t,
 )
 from gnnadvisor_osdi21_tpu_torch.graphs.loader import GraphCSR
@@ -131,50 +129,24 @@ def shard_graph_hybrid(
     ci = np.asarray(graph.column_index, dtype=np.int64)
     src = np.repeat(np.arange(n, dtype=np.int64), np.diff(rp))
 
-    # --- tier + residual geometry: the same two-pass fixed point as the ---
-    # single-chip build (build_hybrid): choose_tiers prices the pair census
-    # at a given res_ob, the chosen ob changes which tiers pay off, so
-    # re-price once at the geometry the layout is built with; the geometry
-    # chooser is charged the padded-row cost the chosen diag block implies
-    # (single- and multi-device builds make the same layout decisions).  Blocks are a multiple of res_ob, so the global
-    # (src//res_ob, dst) census equals the union of the per-device ones —
-    # no circular dependency on the block size.  Per-device hot sets
-    # (table-id space) differ slightly from the global hot census used
-    # here; the geometry choice is robust to that (it prices aggregate
-    # slot counts, not identities).
-    in_diag_b, in_hot_k = diag_b, hot_k  # user-fixed (None = auto)
-    census_ob = res_ob or 1024
-    for _ in range(2):
-        diag_b, hot_k = choose_tiers(
-            src, ci, n, hot_k=in_hot_k, diag_b=in_diag_b, res_ob=census_ob
-        )
-        if diag_b:
-            in_diag = (src // diag_b) == (ci // diag_b)
-        else:
-            in_diag = np.zeros(len(src), dtype=bool)
-
-        if res_tile is None or res_ob is None:
-            if hot_k:
-                counts = np.bincount(ci[~in_diag], minlength=n)
-                top = np.argsort(counts)[::-1][:hot_k]
-                hot_col = np.full(n, -1, dtype=np.int64)
-                hot_col[top[counts[top] > 0]] = 1
-                in_res_g = (~in_diag) & (hot_col[ci] < 0)
-            else:
-                in_res_g = ~in_diag
-            auto_ob, auto_rt = choose_res_geometry(
-                src[in_res_g], ci[in_res_g], n,
-                row_align=max(diag_b, 512),
-                row_cost_ns=SLAB_A_NS + SLAB_B_NS * (diag_b + hot_k),
-            )
-            chosen_ob = res_ob or auto_ob
-            chosen_rt = res_tile or auto_rt
-        else:
-            chosen_ob, chosen_rt = res_ob, res_tile
-        if chosen_ob == census_ob:
-            break
-        census_ob = chosen_ob  # re-price the tiers at the real geometry
-    res_ob, res_tile = chosen_ob, chosen_rt
+    # --- tier + residual geometry: the single-chip build's fixed point ---
+    # (graphs/hybrid.choose_layout_tiers), so that single- and multi-device
+    # builds make the same layout decisions.  Blocks are a multiple of
+    # res_ob, so the global (src//res_ob, dst) census equals the union of
+    # the per-device ones — no circular dependency on the block size.
+    # Per-device hot sets (table-id space) differ slightly from the global
+    # hot census used here; the geometry choice is robust to that (it
+    # prices aggregate slot counts, not identities).
+    census = (EdgeCensus.of_graph(graph)
+              if None in (diag_b, hot_k, res_ob, res_tile) else None)
+    diag_b, hot_k, res_ob, res_tile, _ = choose_layout_tiers(
+        census, n, diag_b=diag_b, hot_k=hot_k, res_tile=res_tile,
+        res_ob=res_ob,
+    )
+    if diag_b:
+        in_diag = (src // diag_b) == (ci // diag_b)
+    else:
+        in_diag = np.zeros(len(src), dtype=bool)
 
     align = max(diag_b, res_ob, 512)
     block = _round_up(_round_up(max(n, num_devices), num_devices) // num_devices, align)

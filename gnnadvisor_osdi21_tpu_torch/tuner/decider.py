@@ -43,7 +43,9 @@ import numpy as np
 
 from gnnadvisor_osdi21_tpu_torch.device import resolve_device
 from gnnadvisor_osdi21_tpu_torch.graphs import reorder
-from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import build_hybrid, choose_tiers
+from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import (
+    EdgeCensus, build_hybrid, choose_tiers,
+)
 from gnnadvisor_osdi21_tpu_torch.graphs.loader import GraphCSR
 from gnnadvisor_osdi21_tpu_torch.graphs.partition import build_neighbor_groups
 from gnnadvisor_osdi21_tpu_torch.ops import graph_tensors
@@ -119,6 +121,9 @@ class InputProperty:
         self.layer_input: Optional[LayerConfig] = None
         self.layer_hidden: Optional[LayerConfig] = None
         self.hybrid_graph = None  # set by build_tensors for method="hybrid"
+        # the graph's edge census, sorted once by decider() and priced
+        # again by build_tensors() (graphs/hybrid.EdgeCensus)
+        self.census: Optional[EdgeCensus] = None
 
     def pad_features(self, a):
         """Node-indexed array -> the tensors' row space (the hybrid
@@ -186,13 +191,10 @@ class InputProperty:
         if method == "hybrid":
             g = self.graph
             with profiling.span("decider.choose_tiers"):
-                src = np.repeat(
-                    np.arange(g.num_nodes, dtype=np.int64),
-                    np.diff(np.asarray(g.row_pointers, dtype=np.int64)),
-                )
+                c = self.census = EdgeCensus.of_graph(g)
                 self.diag_b, self.hot_k = choose_tiers(
-                    src, np.asarray(g.column_index, dtype=np.int64),
-                    g.num_nodes, hot_k=self.hot_k, diag_b=self.diag_b,
+                    c.src, c.dst, g.num_nodes, hot_k=self.hot_k,
+                    diag_b=self.diag_b, census=c,
                 )
         self.layer_input = LayerConfig(method, ps, self.input_dim)
         self.layer_hidden = LayerConfig(method, ps, self.hidden_dim)
@@ -240,10 +242,12 @@ class InputProperty:
             return gt, gt
         # the user's values, not the decider's: build_hybrid re-prices the
         # tiers at the residual geometry it builds, as the JAX build does,
-        # and the probe may override the model's pick on the card
+        # and the probe may override the model's pick on the card.  Over
+        # the decider's census its first pass (the decider's own call) is
+        # not priced again.
         hg = self.hybrid_graph = build_hybrid(
             self.graph, hot_k=self._user_hot_k, diag_b=self._user_diag_b,
-            probe=self.probe, device=dev,
+            probe=self.probe, device=dev, census=self.census,
         )
         if (hg.diag_b, hg.hot_k) != (self.diag_b, self.hot_k):
             if self.verbose:
