@@ -8,5 +8,8 @@ once::
 Cells, configurations, traffic mixes and per-layer metrics are named in
 ``BENCHMARK.json`` at the repository's root and found here by name:
 ``configs/<config>.json``, ``traffic/<traffic>.json``,
-``metrics/<metric>.py`` and ``limits/<workload>.json``.
+``metrics/<metric>.py`` and ``limits/<workload>.json``; and a
+configuration's model by its ``model``, ``models/<model>.py`` (its
+weights, widths, reference forward pass and roofline counts:
+``spec.Model``).
 """

@@ -64,19 +64,19 @@ def readings(cell, seeds: list[int], control: int, faults: int, device,
     for i, seed in enumerate(seeds):
         if i:
             prog.reseed(seed, cell)
-        x, labels, params0 = data.make_inputs(seed, cell.config,
+        x, labels, params0 = data.make_inputs(seed, cell.model,
                                               cell.traffic, dev)
-        ref = reference.follow(cell.config, g, x, labels, params0,
+        ref = reference.follow(cell.model, g, x, labels, params0,
                                FIRST_STEPS)
         record("program", seed, prog.readings, ref)
         if i < control:
             for name, lower in reference.CONTROLS.items():
                 record(f"control_{name}", seed, reference.follow(
-                    cell.config, g, x, labels, params0, FIRST_STEPS,
+                    cell.model, g, x, labels, params0, FIRST_STEPS,
                     **lower), ref)
         if i < faults:
             record("half_batch", seed, reference.follow(
-                cell.config, g, x, labels, params0, FIRST_STEPS,
+                cell.model, g, x, labels, params0, FIRST_STEPS,
                 loss_rows=half), ref)
     summary = {"workload": cell.name}
     for k in spec.NUMBERS:

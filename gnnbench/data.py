@@ -4,37 +4,28 @@ harness hands the same tensors to the program and to the reference."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
-def widths(config: dict, traffic: dict) -> list[int]:
-    """The layers' widths, input to output: GCN ``[F, H, C]``, GIN ``[F,
-    H, H, H, H, C]`` at 5 layers."""
-    layers = int(config["num_layers"])
-    return ([int(traffic["features"])] + [int(config["hidden"])] * (layers - 1)
-            + [int(traffic["classes"])])
-
-
-def param_names(config: dict) -> list[str]:
-    """The weights' names, as the port's models call them."""
-    return [f"conv{i + 1}" for i in range(int(config["num_layers"]))]
-
-
-def make_inputs(seed: int, config: dict, traffic: dict, device):
+def make_inputs(seed: int, model, traffic: dict, device):
     """(x [N, F] float32 standard normal, labels [N] int64 uniform over the
-    classes, [W_1..W_L] float32 uniform in +-1/sqrt(fan_out)), all from
-    one generator on ``device`` seeded with ``seed``."""
+    classes, the weights of ``model`` (``spec.Model``) float32, each
+    uniform in +-its bound, in its module's draw order), all from one
+    generator on ``device`` seeded with ``seed``."""
     n = int(traffic["nodes"])
-    ws = widths(config, traffic)
+    ws = model.arch.widths(model.config, traffic)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     x = torch.randn((n, ws[0]), generator=gen, device=device)
     labels = torch.randint(0, ws[-1], (n,), generator=gen, device=device)
-    shapes = list(zip(ws[:-1], ws[1:]))
-    flat = torch.rand(sum(a * b for a, b in shapes), generator=gen,
-                      device=device)
+    draws = [(shape, bound) for _, shape, bound
+             in model.arch.weights(model.config, traffic)]
+    flat = torch.rand(sum(math.prod(shape) for shape, _ in draws),
+                      generator=gen, device=device)
     params, at = [], 0
-    for a, b in shapes:
-        bound = 1.0 / float(b) ** 0.5
-        params.append((flat[at:at + a * b].view(a, b) * 2 - 1) * bound)
-        at += a * b
+    for shape, bound in draws:
+        size = math.prod(shape)
+        params.append((flat[at:at + size].view(shape) * 2 - 1) * bound)
+        at += size
     return x, labels, params

@@ -1,8 +1,9 @@
 """agg_roofline_pct: the step's aggregations' least time over the time
 their kernels took in the profiled window (``agg_ms``'s reading): for each
 aggregation of the step the larger of its bytes over the HBM rate and its
-FLOPs over the bf16 peak (``gnnbench/roofline.py``, from the graph's N
-and E, the widths and the stated operand precision only), summed."""
+FLOPs over the bf16 peak (``gnnbench/roofline.py`` and the model's
+module, from the graph's N and E, the widths and the stated operand
+precision only), summed."""
 
 from gnnbench import roofline, tracing
 
@@ -13,7 +14,7 @@ def read(ctx):
         return None
     cfg = ctx.cell.config
     operand = roofline.DTYPE_BYTES[cfg["precision"]["agg_operands"]]
-    ops = roofline.step_ops(cfg["model"], ctx.nodes, ctx.edges, ctx.widths,
+    ops = roofline.step_ops(ctx.cell.model, ctx.nodes, ctx.edges, ctx.widths,
                             operand)
     bound = sum(roofline.agg_bound_s(op) for op in ops if op.kind == "agg")
     return 100.0 * bound / measured

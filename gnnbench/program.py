@@ -62,7 +62,7 @@ class Program:
         from gnnadvisor_osdi21_tpu_torch.tuner.decider import InputProperty
 
         self = cls()
-        cfg, traffic = cell.config, cell.traffic
+        cfg, traffic, arch = cell.config, cell.traffic, cell.model.arch
         if traffic["reorder"]:
             raise ValueError("a reordered graph cannot be checked yet: the "
                              "decider does not expose its permutation")
@@ -80,7 +80,7 @@ class Program:
 
         prec = cfg["precision"]
         prop = InputProperty(
-            graph, int(cfg["hidden"]), model=cfg["model"],
+            graph, int(cfg["hidden"]), model=arch.PORT,
             manual_mode=False, enable_reorder=False,
             agg_dtype=prec["agg_operands"], gemm_dtype=prec["gemm"],
         )
@@ -103,7 +103,8 @@ class Program:
                 f"{self.layout_s:.3f} s")
 
         t = time.perf_counter()
-        x, labels, params0 = data.make_inputs(seed, cfg, traffic, device)
+        x, labels, params0 = data.make_inputs(seed, cell.model, traffic,
+                                              device)
         n = x.shape[0]
         rows = hg.num_rows if hg is not None else n
         xr = torch.zeros((rows, x.shape[1]), dtype=torch.float32,
@@ -116,15 +117,14 @@ class Program:
         mask = hts[0].row_mask if hg is not None else None
         del x, labels
 
-        ws = data.widths(cfg, traffic)
-        kwargs = {"epsilon": cfg["epsilon"]} if cfg["model"] == "gin" else {}
-        net = train.MODELS[cfg["model"]](
+        ws = arch.widths(cfg, traffic)
+        net = train.MODELS[arch.PORT](
             ws[0], int(cfg["hidden"]), ws[-1],
             generator=torch.Generator().manual_seed(0), device=device,
-            **kwargs)
-        names = data.param_names(cfg)
+            **arch.port_kwargs(cfg))
+        names = [name for name, _, _ in arch.weights(cfg, traffic)]
         if [k for k, _ in net.named_parameters()] != names:
-            raise ValueError(f"the port's {cfg['model']} has weights "
+            raise ValueError(f"the port's {arch.PORT} has weights "
                              f"{[k for k, _ in net.named_parameters()]}, "
                              f"the configuration {names}")
         net.params_from_jax({k: p.cpu().numpy()
@@ -197,7 +197,7 @@ class Program:
     def reseed(self, seed: int, cell) -> None:
         """New seeded inputs in the captured step's own buffers, then the
         first steps again (for reading many seeds from one build)."""
-        x, labels, params0 = data.make_inputs(seed, cell.config, cell.traffic,
+        x, labels, params0 = data.make_inputs(seed, cell.model, cell.traffic,
                                               self.device)
         n = x.shape[0]
         with torch.no_grad():

@@ -1,31 +1,31 @@
-"""The plain reference: GCN and GIN training steps in plain PyTorch.
+"""The plain reference: a configuration's training steps in plain PyTorch.
 
 It imports nothing of the program and takes nothing the program made: it
 builds its own CSR from the traffic's edge list, and the harness hands it
-the same seeded features, labels and weights it handed the program.  It
-follows the semantics the configurations state (the port's and
-GNNAdvisor OSDI'21's):
+the same seeded features, labels and weights it handed the program.  The
+model's layers are its module's (``models/<model>.py``, ``spec.Model``),
+which the caller hands in; this file holds what every model shares, the
+semantics the configurations state (the port's and GNNAdvisor OSDI'21's):
 
 - the aggregation ``Agg(h)[s] = sum over the edges (s, d) of w_sd h[d]``
-  over the edge list with duplicates merged; GCN weighs an edge by
-  ``deg[s] deg[d]`` with ``deg = sqrt(max(out-degree, 1))``
-  (multiplied, not divided: GNNAdvisor's ``dataset.py:121-122``), GIN by
-  1 and scales the sum by epsilon;
+  over the edge list with duplicates merged, ``w_sd`` 1 or, with
+  ``norm``, ``deg[s] deg[d]`` with ``deg = sqrt(max(out-degree, 1))``;
 - the aggregation's backward is the same aggregation applied to the
   incoming gradient (GNNAdvisor's ``gnn_conv.py:23-27``): autograd's
   adjoint on a symmetric graph, and on a directed one the definition
   the system trains with;
-- GCN layer ``Agg(h W)``, GIN layer ``(eps Agg(h)) W``, no bias, ReLU
-  between layers, ``log_softmax`` over the classes, the mean negative
-  log-likelihood over every node;
+- the mean negative log-likelihood of the model's log-probabilities
+  over every node;
 - Adam with bias correction (``p -= lr / (1 - b1^t) * m / (sqrt(v) /
   sqrt(1 - b2^t) + eps)``).
 
 It computes in the precision the configuration states: float32 with TF32
-off, every aggregation operand (GCN's scaled by the source's degree
-factor, as the configuration's semantics put it) rounded to the stated
-operand dtype (bfloat16) and accumulated in float32.  Each aggregation
-runs in blocks of edges, so that it fits beside nothing else.
+off, every aggregation operand (with ``norm`` scaled by the source's
+degree factor, as the configurations' semantics put it) rounded to the
+stated operand dtype (bfloat16) and accumulated in float32.  Each
+aggregation runs in blocks of edges, so that it fits beside nothing
+else.  A model reaches the aggregation and the GEMMs through
+``Kernels``, which carries that precision.
 
 ``CONTROLS`` are the same steps one precision below each that the
 configurations state, for the control that must come out not correct:
@@ -54,15 +54,17 @@ def build_csr(src: np.ndarray, dst: np.ndarray, n: int):
 
 
 class Graph:
-    """The CSR as per-edge tensors on a device: ``rows`` (the edge's
-    source, whose output row it adds to), ``cols`` (the row it reads),
-    and the per-node ``deg`` factors."""
+    """The CSR as tensors on a device: ``indptr`` (each row's first edge,
+    [n+1]), and per edge ``rows`` (the edge's source, whose output row it
+    adds to) and ``cols`` (the row it reads), rows ascending; and the
+    per-node ``deg`` factors."""
 
     def __init__(self, src, dst, n: int, device):
         indptr, cols = build_csr(src, dst, n)
         counts = np.diff(indptr)
         self.n = n
         self.nnz = int(cols.shape[0])
+        self.indptr = torch.from_numpy(indptr).to(device)
         self.rows = torch.from_numpy(
             np.repeat(np.arange(n, dtype=np.int64), counts)).to(device)
         self.cols = torch.from_numpy(cols).to(device)
@@ -148,46 +150,52 @@ class _Tf32Gemm(torch.autograd.Function):
         return g @ _tf32(b).t(), _tf32(a).t() @ g
 
 
-def forward(model: dict, params: list[torch.Tensor], x: torch.Tensor,
-            g: Graph, operand: str = "float32",
-            tf32: bool = False) -> torch.Tensor:
-    """Log-probabilities [n, classes] of the configuration's model, its
-    aggregation operands rounded to ``operand`` and, with ``tf32``, its
-    GEMM operands to TF32."""
-    h = x
-    last = len(params) - 1
-    for i, w in enumerate(params):
-        if model["model"] == "gcn":
-            h = _Agg.apply(_gemm(h, w, tf32), g, True, operand)
-        elif model["model"] == "gin":
-            h = _gemm(model["epsilon"] * _Agg.apply(h, g, False, operand), w,
-                      tf32)
-        else:
-            raise ValueError(f"unknown model {model['model']!r}")
-        if i < last:
-            h = torch.relu(h)
-    return torch.log_softmax(h, dim=1)
+class Kernels:
+    """The aggregation and the GEMM a model's forward reaches, with one
+    run's precision: ``agg`` rounds its operand to ``operand``
+    (``OPERANDS``); ``gemm``, with ``tf32``, rounds both operands to TF32,
+    forward and backward.  So ``CONTROLS`` reach every model."""
+
+    def __init__(self, operand: str = "float32", tf32: bool = False):
+        self.operand, self.tf32 = operand, tf32
+
+    def agg(self, h: torch.Tensor, g: Graph,
+            norm: bool = False) -> torch.Tensor:
+        return _Agg.apply(h, g, norm, self.operand)
+
+    def gemm(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return _gemm(a, b, self.tf32)
 
 
-def follow(model: dict, g: Graph, x: torch.Tensor, labels: torch.Tensor,
+def forward(model, params: list[torch.Tensor], x: torch.Tensor, g: Graph,
+            operand: str = "float32", tf32: bool = False) -> torch.Tensor:
+    """Log-probabilities [n, classes] of ``model`` (``spec.Model``: the
+    configuration and its module), its aggregation operands rounded to
+    ``operand`` and, with ``tf32``, its GEMM operands to TF32."""
+    return model.arch.forward(model.config, params, x, g,
+                              Kernels(operand, tf32))
+
+
+def follow(model, g: Graph, x: torch.Tensor, labels: torch.Tensor,
            params0: list[torch.Tensor], steps: int = 3,
            operand: str | None = None, tf32: bool = False,
            loss_rows=None) -> dict:
-    """Train ``steps`` steps from ``params0``; returns each step's loss
-    (``losses``), each leaf's first gradient (``grad1``) and each leaf's
-    change after the last step (``delta``), as float32 tensors, and the
-    share of the first loss that its largest thousandth of the nodes
-    carry (``top_share``).
+    """Train ``model`` (``spec.Model``) ``steps`` steps from ``params0``;
+    returns each step's loss (``losses``), each leaf's first gradient
+    (``grad1``) and each leaf's change after the last step (``delta``),
+    as float32 tensors, and the share of the first loss that its largest
+    thousandth of the nodes carry (``top_share``).
     ``operand``: the aggregation operands' precision (``OPERANDS``);
     None is the configuration's own.  ``tf32``: GEMM operands rounded to
     TF32.  ``loss_rows``: the nodes the loss averages over (None: all)."""
-    operand = operand or model["precision"]["agg_operands"]
+    cfg = model.config
+    operand = operand or cfg["precision"]["agg_operands"]
     if operand not in OPERANDS:
         raise ValueError(f"unknown precision {operand!r}")
     tf32_was = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        opt = model["optimizer"]
+        opt = cfg["optimizer"]
         lr, b1, b2, eps = opt["lr"], opt["b1"], opt["b2"], opt["eps"]
         params = [p.detach().clone().requires_grad_(True) for p in params0]
         m = [torch.zeros_like(p) for p in params]

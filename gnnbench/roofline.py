@@ -1,8 +1,10 @@
 """The operations and bytes of a training step, and the card's peaks.
 
-Counts come from the graph's node count ``n``, its edge count ``e``
-(duplicates merged) and the model's widths only, never from a layout's
-tiers, so they read the same work whatever layout or kernel does it.  A
+A model's module (``models/<model>.py``) lists the step's GEMMs and
+aggregations with the shared tools here (``agg``, ``gemm``).  Counts
+come from the graph's node count ``n``, its edge count ``e`` (duplicates
+merged) and the model's widths only, never from a layout's tiers, so
+they read the same work whatever layout or kernel does it.  A
 roofline counts each input byte read once and each output byte written
 once: an aggregation's operand at the precision the configuration states
 for it (bfloat16, 2 bytes), float32 (4 bytes) for GEMM operands, weights
@@ -16,6 +18,9 @@ the full 700 W power limit).
 from __future__ import annotations
 
 import dataclasses
+import sys
+
+from gnnbench import spec
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12  # tensor cores, dense
@@ -60,40 +65,17 @@ def agg_bound_s(op: Op) -> float:
     return max(op.bytes / HBM_BYTES_PER_S, op.flops / BF16_FLOPS)
 
 
-def step_ops(model: str, n: int, e: int, widths: list[int],
+def step_ops(model, n: int, e: int, widths: list[int],
              operand: int = F32) -> list[Op]:
     """The GEMMs and aggregations of one training step (forward and
-    backward).  The input features need no gradient, so the first layer
-    computes no gradient of its input.
-
-    GCN layer i (``Agg(h W)``): forward GEMM and aggregation at the
-    layer's output width; backward aggregation, the weight's gradient
-    and, past the first layer, the input's gradient.  GIN layer i
-    (``(eps Agg(h)) W``): forward aggregation at the layer's input width
-    and GEMM; backward the weight's gradient and, past the first layer,
-    the input's gradient and its aggregation.  ``operand``: the bytes of
-    an aggregation operand's element."""
-    ops: list[Op] = []
-    layers = list(zip(widths[:-1], widths[1:]))
-    for i, (a, b) in enumerate(layers):
-        if model == "gcn":
-            ops += [gemm(n, a, b), agg(n, e, b, True, operand)]
-        elif model == "gin":
-            ops += [agg(n, e, a, False, operand), gemm(n, a, b)]
-        else:
-            raise ValueError(f"unknown model {model!r}")
-    for i, (a, b) in reversed(list(enumerate(layers))):
-        if model == "gcn":
-            ops.append(agg(n, e, b, True, operand))
-            ops.append(gemm(a, n, b))  # dW = h^T @ dZ
-            if i > 0:
-                ops.append(gemm(n, b, a))  # dh = dZ @ W^T
-        else:
-            ops.append(gemm(a, n, b))  # dW = Xagg^T @ dZ
-            if i > 0:
-                ops.append(gemm(n, b, a))  # dXagg = dZ @ W^T
-                ops.append(agg(n, e, a, False, operand))
-    return ops
+    backward), as ``model``'s module counts them (its ``step_ops``).
+    ``model``: a ``spec.Model``, or a model's name (its module under
+    ``gnnbench/models/``, with no configuration).  ``operand``: the bytes
+    of an aggregation operand's element."""
+    if isinstance(model, str):
+        model = spec.Model({"model": model})
+    return model.arch.step_ops(model.config, sys.modules[__name__], n, e,
+                               widths, operand)
 
 
 def step_bound_s(ops: list[Op], gemm_dtype: str = "float32") -> float:

@@ -87,7 +87,7 @@ class Context:
         self.trace = None
         self.nodes = None
         self.edges = None
-        self.widths = data.widths(cell.config, cell.traffic)
+        self.widths = cell.model.arch.widths(cell.config, cell.traffic)
 
 
 def main(argv=None, device=None, root=None) -> int:
@@ -145,13 +145,13 @@ def main(argv=None, device=None, root=None) -> int:
     gc.collect()
 
     # the reference, alone on the card
-    cfg, traffic = cell.config, cell.traffic
+    traffic = cell.traffic
     src, dst, n = graphgen.read_edges(
         graphgen.edge_file(traffic, cache_dir))
     g = reference.Graph(src, dst, n, dev)
     ctx.nodes, ctx.edges = g.n, g.nnz
-    x, labels, params0 = data.make_inputs(args.seed, cfg, traffic, dev)
-    ref = reference.follow(cfg, g, x, labels, params0, FIRST_STEPS)
+    x, labels, params0 = data.make_inputs(args.seed, cell.model, traffic, dev)
+    ref = reference.follow(cell.model, g, x, labels, params0, FIRST_STEPS)
     del g, x, labels, params0
     numbers = check.compare(readings, ref)
     correct = check.verdict(numbers, cell.limits) and failed == 0

@@ -1,25 +1,75 @@
 """What ``BENCHMARK.json`` names, found by name: a cell (workload), its
-configuration file, its traffic file, its limits file and the readers of
-its per-layer metrics."""
+configuration file and the module of the configuration's model, its
+traffic file, its limits file and the readers of its per-layer
+metrics."""
 
 from __future__ import annotations
 
 import importlib.util
 import json
 import os
+import sys
 
 from gnnbench import graphgen
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
-CONFIG_KEYS = ("model", "num_layers", "hidden", "epsilon", "optimizer",
-               "precision", "source", "assumed", "reduced")
+# the keys every configuration has; a model's module names its own (KEYS)
+CONFIG_KEYS = ("model", "num_layers", "hidden", "optimizer", "precision",
+               "source", "assumed", "reduced")
 NUMBERS = ("loss1_gap", "loss_gap", "grad_gap", "grad_diff", "delta_gap")
 
 
 def _read_json(path: str) -> dict:
     with open(path) as fp:
         return json.load(fp)
+
+
+def _load(path: str, name: str):
+    """The Python file at ``path``, loaded as a module named ``name`` and
+    registered under it: ``dataclasses`` looks a class's module up while
+    it makes the class."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class Model:
+    """A configuration and the module of its architecture,
+    ``models/<model>.py``, found by the configuration's ``model``.  The
+    module holds all that the harness knows of one architecture; each
+    function takes the configuration first:
+
+    - ``PORT``: the port's model that trains it (a key of the port's
+      ``train.MODELS``, and the decider's ``model``);
+    - ``KEYS``: the configuration keys it needs beyond ``CONFIG_KEYS``;
+    - ``widths(config, traffic)``: the layers' widths, input to output;
+    - ``weights(config, traffic)``: ``(name, shape, bound)`` for each
+      weight in draw order: its name as the port's model calls it, its
+      shape, and its draw, uniform in +-bound (``data.make_inputs``);
+    - ``port_kwargs(config)``: the port's constructor's arguments beyond
+      ``(in_dim, hidden, num_classes)``;
+    - ``forward(config, params, x, g, k)``: the reference's
+      log-probabilities [n, classes] in plain torch, from the weights,
+      the features and ``reference.Graph`` ``g``, reaching the
+      aggregation and the GEMMs only through ``k``
+      (``reference.Kernels``), which carries the run's precision;
+    - ``step_ops(config, rf, n, e, widths, operand)``: the
+      ``roofline.Op`` list of one training step, forward and backward,
+      counted with the shared tools of ``rf`` (``gnnbench.roofline``).
+
+    The module imports nothing but ``numpy`` and ``torch``: the harness
+    hands it the reference's and the roofline's tools."""
+
+    def __init__(self, config: dict, root: str = ROOT):
+        name = config["model"]
+        path = os.path.join(root, "gnnbench", "models", f"{name}.py")
+        if not os.path.isfile(path):
+            raise ValueError(f"model {name!r}: no module {path}")
+        self.config = config
+        self.arch = _load(path, f"gnnbench_model_{name.replace('.', '_')}")
 
 
 class Cell:
@@ -40,6 +90,10 @@ class Cell:
         self.config = _read_json(
             os.path.join(root, configs[self.workload["config"]]["file"]))
         missing = [k for k in CONFIG_KEYS if k not in self.config]
+        if not missing:
+            self.model = Model(self.config, root)
+            missing = [k for k in self.model.arch.KEYS
+                       if k not in self.config]
         if missing:
             raise ValueError(f"configuration {self.workload['config']}: "
                              f"missing keys {missing}")
@@ -62,9 +116,5 @@ class Cell:
     def reader(self, metric: str):
         """The module ``metrics/<metric>.py``: ``read(ctx)`` returns the
         metric's value, or None where the run gives it nothing to read."""
-        path = os.path.join(self.here, "metrics", f"{metric}.py")
-        spec = importlib.util.spec_from_file_location(
-            f"gnnbench_metric_{metric.replace('.', '_')}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod
+        return _load(os.path.join(self.here, "metrics", f"{metric}.py"),
+                     f"gnnbench_metric_{metric.replace('.', '_')}")

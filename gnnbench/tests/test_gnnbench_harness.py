@@ -1,6 +1,7 @@
 """The harness end to end on the host (the port's plain versions, tiny
-cells): a cell added by files alone, sound runs, and runs with the timed
-path broken underneath, which must come out not correct."""
+cells): a cell and a model added by files alone, sound runs, and runs
+with the timed path broken underneath, which must come out not
+correct."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import sys
 import pytest
 import torch
 
-from conftest import REPO, copy_harness, last_json
+from conftest import REPO, TINY_LIMITS, copy_harness, last_json
 
 RESULT_KEYS = {"correct", "attempted", "failed", "metrics", "device"}
 READER = '''"""edges_per_node: the graph's merged edges over its nodes."""
@@ -21,6 +22,54 @@ READER = '''"""edges_per_node: the graph's merged edges over its nodes."""
 
 def read(ctx):
     return ctx.edges / ctx.nodes
+'''
+# a model the harness has no file of: layer Agg(h) W over plain neighbour
+# sums, ReLU between layers; the port's GIN at epsilon 1 computes it
+SUM_CONV = '''"""sum_conv: layer ``Agg(h) W``, ReLU between layers."""
+
+from __future__ import annotations
+
+import torch
+
+PORT = "gin"
+KEYS = ()
+
+
+def widths(config, traffic):
+    layers = int(config["num_layers"])
+    return ([int(traffic["features"])] + [int(config["hidden"])] * (layers - 1)
+            + [int(traffic["classes"])])
+
+
+def weights(config, traffic):
+    ws = widths(config, traffic)
+    return [(f"conv{i + 1}", (a, b), 1.0 / float(b) ** 0.5)
+            for i, (a, b) in enumerate(zip(ws[:-1], ws[1:]))]
+
+
+def port_kwargs(config):
+    return {"epsilon": 1.0}
+
+
+def forward(config, params, x, g, k):
+    h = x
+    for i, w in enumerate(params):
+        h = k.gemm(k.agg(h, g), w)
+        if i < len(params) - 1:
+            h = torch.relu(h)
+    return torch.log_softmax(h, dim=1)
+
+
+def step_ops(config, rf, n, e, widths, operand):
+    ops = []
+    layers = list(zip(widths[:-1], widths[1:]))
+    for a, b in layers:
+        ops += [rf.agg(n, e, a, False, operand), rf.gemm(n, a, b)]
+    for i, (a, b) in reversed(list(enumerate(layers))):
+        ops.append(rf.gemm(a, n, b))
+        if i > 0:
+            ops += [rf.gemm(n, b, a), rf.agg(n, e, a, False, operand)]
+    return ops
 '''
 
 
@@ -102,6 +151,65 @@ def test_a_new_cell_is_files_and_entries(tmp_path):
     assert 1.0 < line1["metrics"]["edges_per_node"]["value"] < 3.0
     assert "layout_s" in line1["metrics"]
     assert "breakdown" in line1
+    after = digests(root)
+    changed = [p for p, h in before.items()
+               if p != "BENCHMARK.json" and after.get(p) != h]
+    assert changed == []
+
+
+def test_a_new_model_is_files_and_entries(tmp_path, monkeypatch, capsys):
+    """A model module, its configuration, traffic, limits and entries, all
+    new files and entries: a sound run is correct, a step that leaves its
+    state unchanged is not, and its counts are the port's GIN's."""
+    from gnnbench import roofline, run, spec
+
+    root = copy_harness(str(tmp_path / "checkout"))
+    before = digests(root)
+    here = os.path.join(root, "gnnbench")
+    with open(os.path.join(here, "models", "sum_conv.py"), "w") as fp:
+        fp.write(SUM_CONV)
+    with open(os.path.join(here, "configs", "gin.json")) as fp:
+        cfg = json.load(fp)
+    cfg.update(model="sum_conv", hidden=16)
+    del cfg["epsilon"]
+    with open(os.path.join(here, "configs", "sum_conv.json"), "w") as fp:
+        json.dump(cfg, fp)
+    with open(os.path.join(here, "traffic", "tiny_sum.json"), "w") as fp:
+        # over the decider's 4,096 nodes of the dense method, which
+        # aggregates in float32 whatever the configuration states
+        json.dump({"recipe": "web", "nodes": 6000, "edges": 30000,
+                   "symmetric": True, "features": 6, "classes": 4,
+                   "graph_seed": 13, "reorder": False,
+                   "stands_for": "a tiny web graph"}, fp)
+    with open(os.path.join(here, "limits", "sum_conv.tiny_sum.json"),
+              "w") as fp:
+        json.dump(TINY_LIMITS, fp)
+    with open(os.path.join(root, "BENCHMARK.json")) as fp:
+        bench = json.load(fp)
+    bench["configs"].append({"name": "sum_conv", "source": "a test",
+                             "file": "gnnbench/configs/sum_conv.json",
+                             "reduced": [], "why": "a test"})
+    bench["workloads"].append({"name": "sum_conv.tiny_sum",
+                               "config": "sum_conv", "traffic": "tiny_sum",
+                               "chips": 1, "why": "a test"})
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as fp:
+        json.dump(bench, fp)
+
+    common = ["--workload", "sum_conv.tiny_sum", "--seconds", "0.3"]
+    res = run_cli(root, *common, "--seed", "2500000011", "--trace", "0")
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert last_json(res.stdout)["correct"] is True, res.stderr[-2000:]
+    _state_unchanged(monkeypatch)
+    capsys.readouterr()
+    assert run.main(common + ["--seed", "2500000013"], device="cpu",
+                    root=root) == 0
+    assert last_json(capsys.readouterr().out)["correct"] is False
+
+    cell = spec.Cell("sum_conv.tiny_sum", root)
+    model, ws = cell.model, [6, 16, 16, 16, 16, 4]
+    assert model.arch.widths(model.config, cell.traffic) == ws
+    assert (roofline.step_ops(model, 6000, 30000, ws, 2)
+            == roofline.step_ops("gin", 6000, 30000, ws, 2))
     after = digests(root)
     changed = [p for p, h in before.items()
                if p != "BENCHMARK.json" and after.get(p) != h]

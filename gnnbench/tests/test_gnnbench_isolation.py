@@ -1,6 +1,6 @@
 """What the harness loads: never JAX nor the JAX package (top-level names
 compared whole: the port's name begins with the JAX package's), and the
-reference nothing of the program."""
+reference and the model modules nothing of the program."""
 
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ import os
 import subprocess
 import sys
 
+import pytest
 from conftest import REPO
 
 HARNESS = os.path.join(REPO, "gnnbench")
@@ -39,11 +40,22 @@ def test_a_run_loads_no_jax(harness):
     assert not tops & JAX_TOPS
 
 
-def test_the_reference_loads_nothing_of_the_program():
-    tops = loaded_tops("import gnnbench.reference")
+# the reference and every model module, which it runs
+REFERENCE_FILES = ["reference.py"] + sorted(
+    f"models/{f}" for f in os.listdir(os.path.join(HARNESS, "models"))
+    if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("path", REFERENCE_FILES)
+def test_the_reference_loads_nothing_of_the_program(path):
+    full = os.path.join(HARNESS, path)
+    tops = loaded_tops(
+        "import importlib.util\n"
+        f"s = importlib.util.spec_from_file_location('probe', {full!r})\n"
+        "s.loader.exec_module(importlib.util.module_from_spec(s))")
     assert PORT not in tops
     assert not tops & JAX_TOPS
-    with open(os.path.join(HARNESS, "reference.py")) as fp:
+    with open(full) as fp:
         tree = ast.parse(fp.read())
     imported = set()
     for node in ast.walk(tree):

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from gnnbench import graphgen, reference
+from gnnbench import graphgen, reference, spec
 
 # (0,1) twice: merged; node 3 reads node 0; node 0 has out-degree 2
 SRC = np.array([0, 0, 1, 2, 0, 3])
@@ -78,8 +78,9 @@ def test_follow_matches_torch_adam_on_a_dense_model():
     """Three steps of the reference's Adam against torch.optim.Adam on the
     same gradients."""
     g = graph()
-    model = {"model": "gin", "epsilon": 0.5,
-             "optimizer": {"lr": 0.01, "b1": 0.9, "b2": 0.999, "eps": 1e-8}}
+    model = spec.Model({"model": "gin", "epsilon": 0.5,
+                        "optimizer": {"lr": 0.01, "b1": 0.9, "b2": 0.999,
+                                      "eps": 1e-8}})
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(4, 3, generator=gen)
     y = torch.tensor([0, 1, 1, 0])
