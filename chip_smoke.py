@@ -164,6 +164,19 @@ PyTorch version on the card:
   a community per node and a modularity).  Their hybrid kernel launches
   go to the ``kernels`` line as ``tool_launches``; ``slab_matmul_t`` and
   ``residual_combine_t`` must have some.
+- phase 18: the attention kernels (``ops/gat_cuda.py``, GAT) on the
+  amazon0505-scale graph's attention layout (self-loops added, row-owner
+  and transposed order): each kernel against its plain version at GAT's
+  widths (8 heads of 8 and of 22 features, bf16 and f32 operands; the
+  aggregation in both orders), the softmax and the row-owner aggregation
+  exactly, the transposed order's sums (hub rows split) against their
+  float64 sums within the error bound of the kernel's summation depth,
+  its longest rows on their own, the SDDMM within the bound of two f32
+  summation orders, with its time, bound and plain time at bf16; GAT's
+  first step on the kernels against the plain versions; its step
+  captured as one CUDA graph, the first step, three warm-up steps and
+  the capture each launching what the first step launched, and two
+  replays from one state giving bit-identical weights and Adam state.
 
 In every training run through the captured step the hybrid kernels'
 wrappers count their launches once per eager step and once at capture; a
@@ -216,6 +229,7 @@ from gnnadvisor_osdi21_tpu_torch.graphs.loader import (
 )
 from gnnadvisor_osdi21_tpu_torch.graphs.reorder import rabbit_permutation
 from gnnadvisor_osdi21_tpu_torch.native import graphtools
+from gnnadvisor_osdi21_tpu_torch.ops import gat_cuda
 from gnnadvisor_osdi21_tpu_torch.ops import (
     _build, fmtprobe_cuda, probe_cuda, reference, spmm_cuda,
 )
@@ -224,7 +238,7 @@ from gnnadvisor_osdi21_tpu_torch.ops.aggregate import (
 )
 from gnnadvisor_osdi21_tpu_torch.train import (
     MODELS, build_model, make_captured_step, make_optimizer, make_train_step,
-    nll_loss, train_and_time,
+    nll_loss, train_and_time, warm_up,
 )
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import (
     build_hybrid_tensors, build_layer_tensors, hybrid_aggregate,
@@ -295,6 +309,7 @@ SOURCES = {
     "bit_slab": "gnnadvisor_osdi21_tpu_torch/csrc/bit_walk.cu",
     fmtprobe_cuda.BIT_SLAB_F32: "gnnadvisor_osdi21_tpu_torch/csrc/bit_walk.cu",
     "seg_reduce": "gnnadvisor_osdi21_tpu_torch/csrc/fmt_probe.cu",
+    **dict.fromkeys(gat_cuda.KERNELS, "gnnadvisor_osdi21_tpu_torch/csrc/gat.cu"),
 }
 REPLACES = {
     "slab_matmul_t": "gnnadvisor_osdi21_tpu/ops/spmm_pallas.py:469",
@@ -311,6 +326,8 @@ REPLACES = {
     "bit_slab": "gnnadvisor_osdi21_tpu/bench/fmtprobe.py:216",
     fmtprobe_cuda.BIT_SLAB_F32: "gnnadvisor_osdi21_tpu/bench/fmtprobe.py:216",
     "seg_reduce": "gnnadvisor_osdi21_tpu/bench/fmtprobe.py:287",
+    # GAT's kernels replace no TPU kernel: the JAX package has no GAT
+    **dict.fromkeys(gat_cuda.KERNELS, None),
 }
 # the amazon0505-scale graph's (edge count, fingerprint) by numpy version:
 # the generator draws one edge fewer under numpy 2.3.5 than under 2.0.2,
@@ -2987,6 +3004,270 @@ def phase16(layouts, recs) -> None:
     baseline_oracle()
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the attention kernels (GAT)
+
+GAT_HEADS, GAT_HIDDEN, GAT_CLASSES = 8, 8, 22
+# the summation-order bound of the attention kernels' checks
+GAT_TOL_TEXT = "1e-30 + 2·n·2^-24·Σ|terms|, n the terms of each sum"
+GAT_EXACT = "exact: both sum in edge order, each product rounded"
+
+
+def gat_tol(count: torch.Tensor, abs_sum: torch.Tensor) -> torch.Tensor:
+    """Two f32 sums of the same n terms in two orders are within
+    2·n·2^-24·Σ|terms| of each other (each within n·2^-24 of the exact
+    sum)."""
+    return 1e-30 + 2.0 * count * 2.0 ** -24 * abs_sum
+
+
+# the transposed order's bound: the kernel's sum against the float64 sum
+GAT_DEPTH_TEXT = ("1e-30 + γ(h + 1)·Σ|terms|, h the additions a term "
+                  "passes through in the kernel's order, γ(h) = h·u/(1 - h·u), "
+                  "u = 2^-24")
+GAT_LONGEST = 4  # the longest transposed rows, checked on their own
+
+
+def gat_depth(walk) -> torch.Tensor:
+    """[rows, 1]: the most additions a term of each row's sum passes
+    through in the kernels' order.  A row of one chunk adds its edges in
+    order; a split row adds a chunk's, then its partials (a warp's share
+    of them, then the fix-up's warp sums in order), at most the longest
+    chunk + the row's partials + 8."""
+    depth = (walk.ptr[1:] - walk.ptr[:-1]).double()
+    if walk.num_partials:
+        longest = float((walk.chunk_hi - walk.chunk_lo).max())
+        parts = (walk.fix_ptr[1:] - walk.fix_ptr[:-1]).double()
+        depth[walk.fix_row.long()] = longest + parts + 8
+    return depth[:, None]
+
+
+def gat_depth_tol(depth: torch.Tensor, abs_sum: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of terms each rounded once (a product, or none),
+    added through at most ``depth`` additions, is within γ(depth + 1)·Σ|terms|
+    of the exact sum."""
+    hu = (depth + 1) * 2.0 ** -24
+    return 1e-30 + hu / (1 - hu) * abs_sum
+
+
+def gat_vs_float64(rec: Record, label: str, got: torch.Tensor,
+                   exact: torch.Tensor, abs_sum: torch.Tensor, walk) -> None:
+    """A transposed-order kernel's sums against their float64 sums, within
+    ``gat_depth_tol``, and its longest rows alone."""
+    depth = gat_depth(walk)
+    tol = gat_depth_tol(depth, abs_sum)
+    compare(rec, label, lambda: got, lambda: exact, tol, GAT_DEPTH_TEXT)
+    lengths = walk.ptr[1:] - walk.ptr[:-1]
+    for r in torch.topk(lengths, GAT_LONGEST).indices.tolist():
+        err = float((got[r].double() - exact[r]).abs().max())
+        bound = float(tol[r].min())
+        log(f"  {label} row {r} ({int(lengths[r])} edges, depth "
+            f"{int(depth[r])}): max_abs_err {err:.3e}, least bound "
+            f"{bound:.3e}")
+        require(bool(((got[r].double() - exact[r]).abs() <= tol[r]).all()),
+                f"{label}: row {r} disagrees with its float64 sum")
+
+
+def gat_bytes(n: int, e: int, k: int, f: int) -> dict:
+    """Each attention kernel's bytes read once and written once, as the
+    benchmark's GAT module counts them (bf16 operand)."""
+    idx, ptrs, f32, w = 4 * e, 4 * (n + 1), 4, k * f
+    return {
+        "gat_softmax": 2 * n * k * f32 + idx + ptrs + e * k * f32,
+        "gat_aggregate": n * w * (2 + f32) + e * k * f32 + idx + ptrs,
+        "gat_aggregate_t": n * w * (2 + f32) + e * k * f32 + 2 * idx + ptrs,
+        "gat_sddmm": (n * w * (2 + 2 * f32) + 2 * e * k * f32
+                      + 3 * n * k * f32 + idx + ptrs),
+        "gat_col_reduce": e * k * f32 + idx + ptrs + n * k * f32,
+    }
+
+
+@contextlib.contextmanager
+def plain_gat_kernels():
+    """Route the attention op through the plain versions (on the card)."""
+    names = ("edge_softmax", "aggregate", "sddmm", "col_reduce")
+    saved = {n: getattr(gat_cuda, n) for n in names}
+    try:
+        for n in names:
+            setattr(gat_cuda, n, getattr(gat_cuda, f"{n}_plain"))
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(gat_cuda, n, fn)
+
+
+def gat_kernels_vs_plain(gt, recs, f: int, dtype, gen) -> None:
+    """Each attention kernel against its plain version at K heads of f
+    features; at bf16, their times beside their bounds."""
+    n, e, k = gt.num_nodes, gt.num_edges, GAT_HEADS
+    rows, cols = gt.rows, gt.cols
+    tag = f"F={f} {str(dtype).split('.')[-1]}"
+    v = torch.randn((n, k * f), generator=gen, device=DEVICE)
+    s_src = torch.randn((n, k), generator=gen, device=DEVICE)
+    s_dst = torch.randn((n, k), generator=gen, device=DEVICE)
+    row_len = (rows.ptr[1:] - rows.ptr[:-1]).float()
+    alpha_p = gat_cuda.edge_softmax_plain(rows.ptr, rows.idx, s_src, s_dst,
+                                          0.2)
+    # the softmax and the row-owner aggregation (no row split) sum in edge
+    # order, each product rounded, as the plain versions do: exact
+    compare(recs["gat_softmax"], f"gat_softmax {tag}",
+            lambda: gat_cuda.edge_softmax(rows.ptr, rows.idx, s_src, s_dst,
+                                          0.2),
+            lambda: alpha_p, torch.zeros_like(alpha_p), GAT_EXACT)
+    table = gat_cuda.operand_table(v, k, f, dtype)
+    abs_table = table.abs()
+    require(rows.num_partials == 0, "no row-owner row is split")
+    compare(recs["gat_aggregate"], f"gat_aggregate row-owner {tag}",
+            lambda: gat_cuda.aggregate(table, k, f, rows, alpha_p),
+            lambda: gat_cuda.aggregate_plain(table, k, f, rows, alpha_p),
+            torch.zeros((n, k * f), device=DEVICE), GAT_EXACT)
+    # the transposed order splits its hub rows: against the float64 sums
+    # of the same products
+    alpha64, table64 = alpha_p.double(), table.double()
+    gat_vs_float64(recs["gat_aggregate"], f"gat_aggregate transposed {tag}",
+                   gat_cuda.aggregate(table, k, f, cols, alpha_p),
+                   gat_cuda.aggregate_plain(table64, k, f, cols, alpha64),
+                   gat_cuda.aggregate_plain(table64.abs(), k, f, cols,
+                                            alpha64), cols)
+    del table64
+    dy = torch.randn((n, k * f), generator=gen, device=DEVICE)
+    out = gat_cuda.aggregate_plain(table, k, f, rows, alpha_p)
+    args = (rows.ptr, rows.idx, table, k, f, dy, out, alpha_p, s_src, s_dst,
+            0.2)
+    de_k, ds_k = gat_cuda.sddmm(*args)
+    de_p, ds_p = gat_cuda.sddmm_plain(*args)
+    # de = alpha (dalpha - c): each dot is a sum of f products
+    edge_rows = gat_cuda._rows_of(rows.ptr)
+    abs_dot = (dy.abs().view(n, k, f)[edge_rows]
+               * gat_cuda._head_values(abs_table, k, f, torch.float32)[
+                   rows.idx.long()]
+               ).sum(-1)
+    abs_c = (dy.abs() * out.abs()).view(n, k, f).sum(-1)
+    de_tol = (alpha_p * gat_tol(f, abs_dot + abs_c[edge_rows])
+              + 2.0 ** -22 * de_p.abs())
+    compare(recs["gat_sddmm"], f"gat_sddmm de {tag}", lambda: de_k,
+            lambda: de_p, de_tol, "alpha·2·F·2^-24·(Σ|dy·v| + Σ|dy·out|) "
+            "+ 2^-22·|de|")
+    ds_tol = (gat_cuda._segment_sum(de_tol, rows.ptr.long())
+              + gat_tol(row_len[:, None],
+                        gat_cuda._segment_sum(de_p.abs(), rows.ptr.long())))
+    compare(recs["gat_sddmm"], f"gat_sddmm ds {tag}", lambda: ds_k,
+            lambda: ds_p, ds_tol, "the sum of de's bounds + " + GAT_TOL_TEXT)
+    de64 = de_p.double()
+    gat_vs_float64(recs["gat_col_reduce"], f"gat_col_reduce {tag}",
+                   gat_cuda.col_reduce(de_p, cols),
+                   gat_cuda.col_reduce_plain(de64, cols),
+                   gat_cuda.col_reduce_plain(de64.abs(), cols), cols)
+    if dtype != torch.bfloat16:
+        return
+    nbytes = gat_bytes(n, e, k, f)
+    runs = (
+        ("gat_softmax", "gat_softmax",
+         lambda: gat_cuda.edge_softmax(rows.ptr, rows.idx, s_src, s_dst, 0.2),
+         lambda: gat_cuda.edge_softmax_plain(rows.ptr, rows.idx, s_src,
+                                             s_dst, 0.2)),
+        ("gat_aggregate", "gat_aggregate",
+         lambda: gat_cuda.aggregate(table, k, f, rows, alpha_p),
+         lambda: gat_cuda.aggregate_plain(table, k, f, rows, alpha_p)),
+        ("gat_aggregate", "gat_aggregate_t",
+         lambda: gat_cuda.aggregate(table, k, f, cols, alpha_p),
+         lambda: gat_cuda.aggregate_plain(table, k, f, cols, alpha_p)),
+        ("gat_sddmm", "gat_sddmm", lambda: gat_cuda.sddmm(*args),
+         lambda: gat_cuda.sddmm_plain(*args)),
+        ("gat_col_reduce", "gat_col_reduce",
+         lambda: gat_cuda.col_reduce(de_p, cols),
+         lambda: gat_cuda.col_reduce_plain(de_p, cols)),
+    )
+    for rec_name, label, kernel, plain in runs:
+        ms, plain_ms = time_ms(kernel), time_ms(plain, reps=3)
+        bound_ms = nbytes[label] / HBM_BYTES_PER_S * 1e3
+        rec = recs[rec_name]
+        if f == GAT_CLASSES and label != "gat_aggregate_t":
+            rec.ms, rec.plain_ms, rec.bound_ms = ms, plain_ms, bound_ms
+        log(f"  {label} F={f}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms (bytes)")
+
+
+def gat_state(net, opt) -> list[torch.Tensor]:
+    """The weights and Adam's state, in a fixed order."""
+    out = [p.detach() for p in net.parameters()]
+    for p in net.parameters():
+        st = opt.state.get(p, {})
+        out += [st[k] for k in sorted(st) if isinstance(st[k], torch.Tensor)]
+    return out
+
+
+def phase18(recs, g) -> None:
+    start = time.perf_counter()
+    prop = InputProperty(g, hidden_dim=GAT_HIDDEN, model="gat").decider()
+    hts = prop.build_tensors()
+    gt, lay = hts[0], prop.gat_layout
+    log(f"phase 18: attention layout of the amazon0505-scale graph: "
+        f"{lay.num_nodes} nodes, {lay.num_edges} edges ({lay.loops_added} "
+        f"self-loops added); longest row {lay.rows.longest}, longest "
+        f"transposed row {lay.cols.longest}; chunks {len(lay.rows.chunk_lo)} "
+        f"and {len(lay.cols.chunk_lo)}, partial rows "
+        f"{lay.rows.num_partials} and {lay.cols.num_partials} "
+        f"({time.perf_counter() - start:.1f} s)")
+    require(lay.num_edges == g.nnz + lay.loops_added,
+            "the attention layout holds the graph's edges and one self-loop "
+            "a node")
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    for f in (GAT_HIDDEN, GAT_CLASSES):
+        for dtype in DTYPES:
+            gat_kernels_vs_plain(gt, recs, f, dtype, gen)
+
+    # GAT's first step on the kernels against the plain versions
+    x = torch.from_numpy(g.init_embedding(96)).to(DEVICE)
+    y = torch.from_numpy(g.init_labels(GAT_CLASSES)).to(DEVICE)
+    net = MODELS["gat"](96, GAT_HIDDEN, GAT_CLASSES, device=DEVICE)
+    run = step_run(net, x, y, None, hts)
+    gat_cuda.reset_launches()
+    loss_k, grads_k = run()
+    eager = dict(gat_cuda.launches)
+    with plain_gat_kernels():
+        loss_p, grads_p = run()
+    agree("GAT", net, (loss_k, grads_k), (loss_p, grads_p), STEP_RTOL,
+          f"launches {eager}")
+    require(eager == {"gat_softmax": 2, "gat_aggregate": 4, "gat_sddmm": 2,
+                      "gat_col_reduce": 2},
+            f"a GAT step launches each attention kernel as its two layers "
+            f"ask: {eager}")
+
+    # the step captured: what an eager step launches, and two replays from
+    # one state give the same bits
+    opt = make_optimizer(net)
+    step = make_train_step(net, hts, opt, None)
+    warm_up(lambda: step(x, y), 3, torch.device(DEVICE))
+    captured = make_captured_step(net, hts, opt, x, y, None, capacity=8)
+    counts = dict(gat_cuda.launches)
+    # the wrappers' counts since the first step: it, three warm-up steps
+    # and the capture, each launching what the first step launched
+    require(counts == {k: 5 * v for k, v in eager.items()},
+            f"the first step, three warm-up steps and the capture launched "
+            f"{counts}, five eager steps {eager}")
+    for k, v in counts.items():
+        recs[k].launches = v
+    torch.cuda.synchronize()
+    state0 = [t.clone() for t in gat_state(net, opt)]
+    captured.replay()
+    torch.cuda.synchronize()
+    first = [t.clone() for t in gat_state(net, opt)]
+    with torch.no_grad():
+        for t, t0 in zip(gat_state(net, opt), state0):
+            t.copy_(t0)
+    captured.replay()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, gat_state(net, opt)))
+    moved = any(not torch.equal(a, b) for a, b in zip(first, state0))
+    ms = time_ms(captured.replay, reps=4)
+    losses = captured.losses()
+    log(f"  GAT captured step: two replays from one state bit-identical: "
+        f"{same}; {ms:.3f} ms a replay; losses {losses}")
+    require(same and moved, "two replays of the GAT step from one state give "
+            "the same weights and Adam state, and the step moves them")
+    require(all(math.isfinite(v) for v in losses), "GAT's losses are finite")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2998,7 +3279,7 @@ def main() -> int:
     layouts = build_layouts()
     rm = rowmajor_tensors(layouts)
     recs = {n: Record(n) for n in spmm_cuda.KERNELS + probe_cuda.KERNELS
-            + tuple(fmtprobe_cuda.launches)}
+            + tuple(fmtprobe_cuda.launches) + gat_cuda.KERNELS}
     phase2(layouts, recs)
     phase2_rowmajor(layouts, rm, recs)
     epoch_ms = phase3(layouts, recs)
@@ -3016,7 +3297,8 @@ def main() -> int:
             ("14", lambda: phase14(layouts)),
             ("15", lambda: phase15(recs)),
             ("16", lambda: phase16(layouts, recs)),
-            ("17", lambda: phase17(layouts, recs))):
+            ("17", lambda: phase17(layouts, recs)),
+            ("18", lambda: phase18(recs, layouts[0][0]))):
         start = time.perf_counter()
         done[name] = phase()
         log(f"  phase took {time.perf_counter() - start:.1f} s")

@@ -8,12 +8,15 @@ port does with them:
 - dataset selection (``--dataDir --dataset --dim --hidden --classes
   --loadFromTxt``, ``--synthetic N:E:kind``; a roster name without its
   ``.npz`` synthesizes, ``bench/datasets.py``), the model and epochs
-  (``--model --num_epoches``), ``--method``, ``--diagB``/``--hotK``,
+  (``--model --num_epoches``; ``--model gat`` with ``--heads`` and
+  ``--out_heads``, on its attention layout, one card, the port's own
+  model), ``--method``, ``--diagB``/``--hotK``,
   ``--agg_dtype``, ``--gemm_dtype``, ``--seed``, the mode flags
   (``--manual_mode --verbose_mode --enable_rabbit``) and ``--partSize``:
   as the JAX package does; ``--verbose_mode True`` also prints, once
-  training has run, the set-up's spans (``SETUP_SPANS``) as a tree with
-  self times, and the span store's counters (``utils/profiling.py``);
+  training has run, the set-up's spans (``SETUP_SPANS``) of this run as
+  a tree with self times, and the span store's counters
+  (``utils/profiling.py``);
 - ``--dimWorker``, ``--warpPerBlock`` and ``--sharedMem`` are accepted
   and unused: the CUDA kernels size their own launches
   (``tuner/decider.py``);
@@ -63,7 +66,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dim", type=int, default=96, help="input embedding dimension")
     p.add_argument("--hidden", type=int, default=16, help="hidden dimension")
     p.add_argument("--classes", type=int, default=22, help="output classes")
-    p.add_argument("--model", type=str, default="gcn", choices=["gcn", "gin"])
+    p.add_argument("--model", type=str, default="gcn",
+                   choices=["gcn", "gin", "gat"])
+    p.add_argument("--heads", type=int, default=8,
+                   help="GAT: the first layer's heads (concatenated)")
+    p.add_argument("--out_heads", type=int, default=8,
+                   help="GAT: the output layer's heads (averaged)")
     p.add_argument("--num_epoches", type=int, default=200)
     # the reference's manual performance parameters
     p.add_argument("--partSize", type=int, default=32, help="neighbor-group size")
@@ -163,6 +171,7 @@ def load_dataset(args):
 
 
 def main(argv=None) -> int:
+    started_ns = time.perf_counter_ns()
     args = build_parser().parse_args(argv)
     print(args)
     import torch
@@ -172,6 +181,12 @@ def main(argv=None) -> int:
     from gnnadvisor_osdi21_tpu_torch.tuner.decider import InputProperty
 
     device = "cpu" if args.platform == "cpu" else None
+    if args.model == "gat" and (args.num_devices > 1
+                                or "True" in (args.verify_spmm,
+                                              args.single_spmm)):
+        print("error: --model gat trains on one device, with no SpMM to "
+              "verify or profile", file=sys.stderr)
+        return 2
     if args.num_devices > 1:
         from gnnadvisor_osdi21_tpu_torch.parallel.mesh import check_cards
 
@@ -245,13 +260,15 @@ def main(argv=None) -> int:
         num_epochs=args.num_epoches, mask=mask, seed=args.seed,
         device=device, use_scan=args.use_scan == "True",
         save_ckpt=args.save_ckpt or None, resume=args.resume or None,
+        model_kwargs=({"heads": args.heads, "out_heads": args.out_heads}
+                      if args.model == "gat" else None),
     )
     ms = res["epoch_ms"]
     if on_host:
         ms = (time.perf_counter() - start) * 1e3 / max(len(res["losses"]), 1)
         print(host_note.format("training step"))
     if verbose:
-        print_setup_spans()
+        print_setup_spans(started_ns)
         print(f"# warmup (s): {res['warmup_s']:.2f}  final loss: "
               f"{res['final_loss']:.4f}  step: {res['step']}")
     print(f"Time (ms): {ms:.3f}")
@@ -259,13 +276,16 @@ def main(argv=None) -> int:
 
 
 
-def print_setup_spans() -> None:
-    """The set-up's spans as a tree with self times, then the counters, on
-    ``#`` lines."""
+def print_setup_spans(since_ns: int = 0) -> None:
+    """The set-up's spans opened from ``since_ns`` on (the store's clock,
+    ``time.perf_counter_ns``: this run's, where the process ran others
+    before) as a tree with self times, then the counters, on ``#``
+    lines."""
     from gnnadvisor_osdi21_tpu_torch.utils import profiling
 
     roots = [r for r in profiling.STORE.records
-             if r.parent is None and r.name in SETUP_SPANS]
+             if r.parent is None and r.name in SETUP_SPANS
+             and r.start_ns >= since_ns]
     print("# set-up spans (seconds, self seconds):")
     for line in profiling.format_tree(roots):
         print(f"#   {line}")

@@ -34,6 +34,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 # C entry point -> argument types (every one returns a cudaError_t as int)
 SIGNATURES = {
     # bits, w16, block, table, R, D, Dp, bf16, transposed, out, stream
@@ -70,6 +71,24 @@ SIGNATURES = {
     "gnna_stream_sum": (_P, _I, _I, _L, _P, _P, _P),
     # vals, masks, segs, t2b, first, T, tile, ob, n_blocks, s, out, stream
     "gnna_seg_reduce": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # the attention kernels (csrc/gat.cu):
+    # table, ld, bf16, K, F, PH, idx, pos, alpha, chunk_lo, chunk_hi,
+    # chunk_dst, chunks, fix_row, fix_ptr, fix_rows, partial, out, stream
+    "gnna_gat_aggregate": (
+        _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P,
+        _P, _P,
+    ),
+    # ptr, col, s_src, s_dst, n, K, slope, alpha, stream
+    "gnna_gat_softmax": (_P, _P, _P, _P, _I, _I, _F, _P, _P),
+    # ptr, col, n, table, ld, bf16, K, F, PH, dy, out, alpha, s_src, s_dst,
+    # slope, de, ds, stream
+    "gnna_gat_sddmm": (
+        _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _F, _P, _P,
+        _P,
+    ),
+    # de, pos, K, chunk_lo, chunk_hi, chunk_dst, chunks, fix_row, fix_ptr,
+    # fix_rows, partial, out, stream
+    "gnna_gat_col_reduce": (_P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P),
 }
 
 

@@ -28,7 +28,8 @@ The port of ``gnnadvisor_osdi21_tpu/train.py``:
 
 Models: the 2-layer GCN and the 5-layer GIN, on a transposed or a
 row-major hybrid layout or on the ELL, dense and COO tensors (row-major,
-no padding rows).
+no padding rows); the 2-layer GAT on its attention layout (row-major, no
+padding rows, ``ops/gat.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 
 from gnnadvisor_osdi21_tpu_torch.device import resolve_device
+from gnnadvisor_osdi21_tpu_torch.models.gat import GAT
 from gnnadvisor_osdi21_tpu_torch.models.gcn import GCN
 from gnnadvisor_osdi21_tpu_torch.models.gin import GIN
 from gnnadvisor_osdi21_tpu_torch.ops import spmm_cuda
@@ -56,7 +58,7 @@ from gnnadvisor_osdi21_tpu_torch.utils.checkpoint import (
 )
 
 
-MODELS = {"gcn": GCN, "gin": GIN}
+MODELS = {"gcn": GCN, "gin": GIN, "gat": GAT}
 
 
 def nll_per_row(
@@ -110,14 +112,17 @@ def build_model(
     hidden: int,
     num_classes: int,
     device=None,
+    model_kwargs: Mapping | None = None,
 ) -> torch.nn.Module:
-    """The 2-layer GCN ("gcn") or the 5-layer GIN ("gin"), its weights
-    drawn from ``generator`` (a CPU ``torch.Generator``, the JAX key's
-    counterpart) and placed on ``device`` (None: the card)."""
+    """The 2-layer GCN ("gcn"), the 5-layer GIN ("gin") or the 2-layer GAT
+    ("gat"), its weights drawn from ``generator`` (a CPU
+    ``torch.Generator``, the JAX key's counterpart) and placed on
+    ``device`` (None: the card); ``model_kwargs``: the model's own
+    constructor arguments (GAT's ``heads``, ``out_heads``)."""
     if model not in MODELS:
         raise ValueError(f"unknown model: {model}")
     return MODELS[model](in_dim, hidden, num_classes, generator=generator,
-                         device=device)
+                         device=device, **(model_kwargs or {}))
 
 
 def make_optimizer(net: torch.nn.Module, lr: float = 0.01) -> torch.optim.Adam:
@@ -302,9 +307,10 @@ def train_and_time(
     use_scan: bool = True,
     save_ckpt: str | None = None,
     resume: str | None = None,
+    model_kwargs: Mapping | None = None,
 ) -> dict:
-    """Train ``model`` ("gcn" or "gin") full-graph and time its epochs
-    with the reference protocol.
+    """Train ``model`` ("gcn", "gin" or "gat", with ``model_kwargs``)
+    full-graph and time its epochs with the reference protocol.
 
     ``dry_run`` warm-up epochs run first, step by step.  On the card, the
     timed epochs then run in windows, one window being ``chunk`` epochs
@@ -359,7 +365,8 @@ def train_and_time(
     if on_card:
         exact_f32_matmul()
     net = build_model(model, torch.Generator().manual_seed(seed), x.shape[1],
-                      hidden, num_classes, device=dev)
+                      hidden, num_classes, device=dev,
+                      model_kwargs=model_kwargs)
     if init_params is not None:
         net.params_from_jax(init_params)
     capture = on_card and use_scan and num_epochs > 0

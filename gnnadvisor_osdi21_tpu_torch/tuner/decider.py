@@ -24,7 +24,13 @@ TPU v5e, copied so that the port's choices equal the JAX decider's.  The
 JAX decider's TPU geometry (``feature_tile``, ``block_parts``,
 ``vmem_budget``) is gone: the CUDA kernels size their own launches.
 
-Models are the 2-layer GCN and the 5-layer GIN.  The hybrid layout is
+Models are the 2-layer GCN, the 5-layer GIN and the 2-layer GAT.  GAT
+runs on its own method, ``gat``, at every size and in either mode: the
+attention layout (``graphs/gat.py``), the graph's edges with one
+self-loop a node in row-owner and transposed order, built over the
+census that ``decider()`` sorts once (``graphs/gat.AttentionCensus``,
+span ``decider.census``); its
+build is the span ``layout.edges``.  The hybrid layout is
 transposed (``transposed=None`` or True, the JAX default for the hybrid
 method) or row-major (``transposed=False``); the other paths are
 row-major.  ``probe`` is the measured-probe tier autotune
@@ -43,12 +49,16 @@ import numpy as np
 
 from gnnadvisor_osdi21_tpu_torch.device import resolve_device
 from gnnadvisor_osdi21_tpu_torch.graphs import reorder
+from gnnadvisor_osdi21_tpu_torch.graphs.gat import (
+    AttentionCensus, build_gat_layout,
+)
 from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import (
     EdgeCensus, build_hybrid, choose_tiers,
 )
 from gnnadvisor_osdi21_tpu_torch.graphs.loader import GraphCSR
 from gnnadvisor_osdi21_tpu_torch.graphs.partition import build_neighbor_groups
 from gnnadvisor_osdi21_tpu_torch.ops import graph_tensors
+from gnnadvisor_osdi21_tpu_torch.ops.gat import GatTensors, build_gat_tensors
 from gnnadvisor_osdi21_tpu_torch.ops.graph_tensors import (
     GraphTensors, build_graph_tensors,
 )
@@ -57,7 +67,8 @@ from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import (
 )
 from gnnadvisor_osdi21_tpu_torch.utils import profiling
 
-METHODS = graph_tensors.METHODS + ("hybrid",)
+METHODS = graph_tensors.METHODS + ("hybrid", "gat")
+MODELS = ("gcn", "gin", "gat")
 DENSE_MAX_NODES = 4096  # above this, an N×N adjacency stops being a win
 # ELL cost law (per epoch), the JAX package's weighted least-squares fit
 # over its partSize study (5 graphs x partSize 2..512 on a TPU v5e): a
@@ -97,7 +108,7 @@ class InputProperty:
         probe: Optional[bool] = None,
         gemm_dtype: str = "float32",
     ):
-        if model not in ("gcn", "gin"):
+        if model not in MODELS:
             raise ValueError(f"unknown model: {model}")
         self.graph = graph
         self.input_dim = graph.num_features
@@ -121,6 +132,7 @@ class InputProperty:
         self.layer_input: Optional[LayerConfig] = None
         self.layer_hidden: Optional[LayerConfig] = None
         self.hybrid_graph = None  # set by build_tensors for method="hybrid"
+        self.gat_layout = None  # set by build_tensors for method="gat"
         # the graph's edge census, sorted once by decider() and priced
         # again by build_tensors() (graphs/hybrid.EdgeCensus)
         self.census: Optional[EdgeCensus] = None
@@ -140,6 +152,8 @@ class InputProperty:
     # -- decision helpers ---------------------------------------------------
 
     def _auto_method(self) -> str:
+        if self.model == "gat":
+            return "gat"
         return "dense" if self.graph.num_nodes <= DENSE_MAX_NODES else "hybrid"
 
     def _auto_part_size(self) -> int:
@@ -173,7 +187,7 @@ class InputProperty:
 
     def _decide(self) -> "InputProperty":
         if self.manual_mode:
-            method = self.method or "ell"
+            method = self.method or ("gat" if self.model == "gat" else "ell")
             ps = self.part_size or 32
             if self.enable_reorder:
                 self.reorder_status = True
@@ -185,6 +199,9 @@ class InputProperty:
                 self.reorder_status = self._should_reorder()
         if method not in METHODS:
             raise ValueError(f"unknown aggregation method: {method}")
+        if (method == "gat") != (self.model == "gat"):
+            raise ValueError(f"model {self.model} cannot run on method "
+                             f"{method}: GAT runs on method gat alone")
         if self.reorder_status:
             with profiling.span("decider.reorder"):
                 self.graph = reorder.rabbit_reorder_graph(self.graph)
@@ -196,6 +213,9 @@ class InputProperty:
                     c.src, c.dst, g.num_nodes, hot_k=self.hot_k,
                     diag_b=self.diag_b, census=c,
                 )
+        elif method == "gat":
+            with profiling.span("decider.census"):
+                self.census = AttentionCensus(self.graph)
         self.layer_input = LayerConfig(method, ps, self.input_dim)
         self.layer_hidden = LayerConfig(method, ps, self.hidden_dim)
         if self.verbose:
@@ -209,14 +229,17 @@ class InputProperty:
 
     def build_tensors(
         self, device=None
-    ) -> tuple[HybridTensors, HybridTensors] | tuple[GraphTensors, GraphTensors]:
+    ) -> (tuple[HybridTensors, HybridTensors]
+          | tuple[GraphTensors, GraphTensors]
+          | tuple[GatTensors, GatTensors]):
         """The (input-layer, hidden-layer) tensors on ``device`` (None: the
         card).  Both layers share one tensor set: the decider gives them
         one method and part size, and the hybrid residual kernels gather
         by ``res_src`` at any width.  The hybrid method also builds the
         padded-row layout (``pad_features``/``unpad_outputs`` move node
         data in and out).  Spans: ``layout``, around the hybrid layout's
-        (``graphs/hybrid.build_hybrid``) and ``layout.to_device``."""
+        (``graphs/hybrid.build_hybrid``) or the attention layout's
+        (``layout.edges``) and ``layout.to_device``."""
         if self.layer_input is None:
             raise RuntimeError("call decider() first")
         with profiling.span("layout"):
@@ -225,6 +248,20 @@ class InputProperty:
     def _build_tensors(self, device):
         dev = resolve_device(device)
         li = self.layer_input
+        if li.method == "gat":
+            with profiling.span("layout.edges"):
+                lay = self.gat_layout = build_gat_layout(self.graph,
+                                                         self.census)
+            if self.verbose:
+                print(f"# attention layout: {lay.num_edges} edges "
+                      f"({lay.loops_added} self-loops added), longest row "
+                      f"{lay.rows.longest}, longest transposed row "
+                      f"{lay.cols.longest}, {lay.cols.num_partials} "
+                      f"partial rows")
+            with profiling.span("layout.to_device"):
+                gt = build_gat_tensors(lay, dev, agg_dtype=self.agg_dtype,
+                                       gemm_dtype=self.gemm_dtype)
+            return gt, gt
         if li.method != "hybrid":
             groups = None
             if li.method == "ell":

@@ -25,8 +25,22 @@ def _options(parser):
     }
 
 
+# the port's own model, which the JAX package lacks: ``--model gat`` and
+# its two options
+GAT_OPTIONS = {"heads": (("--heads",), 8, None, int, None),
+               "out_heads": (("--out_heads",), 8, None, int, None)}
+
+
 def test_parser_matches_the_jax_parser():
-    assert _options(build_parser()) == _options(jax_parser())
+    """Every option of the JAX parser with its default and choices; beyond
+    them the port has GAT alone: one more ``--model`` choice and
+    ``GAT_OPTIONS``."""
+    port, jax = _options(build_parser()), _options(jax_parser())
+    assert {k: port.pop(k, None) for k in GAT_OPTIONS} == GAT_OPTIONS
+    flags, default, choices, kind, nargs = port["model"]
+    assert choices == jax["model"][2] + ["gat"]
+    port["model"] = (flags, default, jax["model"][2], kind, nargs)
+    assert port == jax
 
 
 @pytest.mark.parametrize("argv", [
@@ -49,8 +63,15 @@ def test_parser_matches_the_jax_parser():
     ["--synthetic", "600:5000:community", "--dim", "16", "--hidden", "16",
      "--classes", "4", "--manual_mode", "False", "--single_spmm", "True",
      "--num_epoches", "5"],
+    # GAT on its attention layout, in either mode
+    ["--synthetic", "700:6000:web", "--dim", "16", "--hidden", "8",
+     "--classes", "4", "--num_epoches", "3", "--manual_mode", "False",
+     "--model", "gat"],
+    ["--synthetic", "700:6000:web", "--dim", "16", "--hidden", "4",
+     "--classes", "3", "--num_epoches", "2", "--model", "gat", "--heads",
+     "4", "--out_heads", "2", "--use_scan", "False"],
 ], ids=["gcn_auto", "gin_manual_ell", "forced_hybrid", "rabbit",
-        "per_step_loop", "single_spmm"])
+        "per_step_loop", "single_spmm", "gat_auto", "gat_manual_heads"])
 def test_cli_runs_on_the_cpu(argv, capsys):
     rc = main(argv + CPU)
     out = capsys.readouterr().out.strip().splitlines()
@@ -92,6 +113,21 @@ SEVERAL = ["--synthetic", "400:3000:community", "--num_devices", "2",
 
 def _time_lines(out: str) -> list[str]:
     return [line for line in out.splitlines() if line.startswith("Time (ms): ")]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--num_devices", "2"], ["--verify_spmm", "True"],
+    ["--single_spmm", "True"], ["--method", "hybrid"]],
+    ids=["several_devices", "verify_spmm", "single_spmm", "hybrid"])
+def test_cli_refuses_what_gat_does_not_run(extra, capsys):
+    argv = ["--synthetic", "300:2000:web", "--dim", "8", "--hidden", "4",
+            "--classes", "3", "--model", "gat", "--manual_mode", "False"]
+    if extra[0] == "--method":
+        with pytest.raises(ValueError, match="method gat"):
+            main(argv + extra + CPU)
+        return
+    assert main(argv + extra + CPU) == 2
+    assert "--model gat" in capsys.readouterr().err
 
 
 def test_cli_refuses_several_devices(capfd):

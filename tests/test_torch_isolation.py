@@ -2,6 +2,7 @@
 package, its entry points refuse to fall back to the CPU, and a kernel
 wrapper given a CUDA tensor never reaches its plain version."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -12,9 +13,11 @@ import torch
 
 from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import build_hybrid
 from gnnadvisor_osdi21_tpu_torch.graphs.loader import synthesize_graph
+from gnnadvisor_osdi21_tpu_torch.graphs.gat import build_gat_layout
+from gnnadvisor_osdi21_tpu_torch.models.gat import GAT
 from gnnadvisor_osdi21_tpu_torch.models.gcn import GCN
 from gnnadvisor_osdi21_tpu_torch.models.gin import GIN
-from gnnadvisor_osdi21_tpu_torch.ops import hybrid_agg, spmm_cuda
+from gnnadvisor_osdi21_tpu_torch.ops import gat_cuda, hybrid_agg, spmm_cuda
 from gnnadvisor_osdi21_tpu_torch.ops.graph_tensors import build_graph_tensors
 from gnnadvisor_osdi21_tpu_torch.train import train_and_time
 from gnnadvisor_osdi21_tpu_torch.tuner.decider import InputProperty
@@ -33,6 +36,10 @@ PORT_MODULES = [
     "gnnadvisor_osdi21_tpu_torch.models",
     "gnnadvisor_osdi21_tpu_torch.models.gcn",
     "gnnadvisor_osdi21_tpu_torch.models.gin",
+    "gnnadvisor_osdi21_tpu_torch.models.gat",
+    "gnnadvisor_osdi21_tpu_torch.graphs.gat",
+    "gnnadvisor_osdi21_tpu_torch.ops.gat",
+    "gnnadvisor_osdi21_tpu_torch.ops.gat_cuda",
     "gnnadvisor_osdi21_tpu_torch.train",
     "gnnadvisor_osdi21_tpu_torch.ops.probe_cuda",
     "gnnadvisor_osdi21_tpu_torch.utils",
@@ -151,6 +158,10 @@ def test_entry_points_refuse_cpu_fallback(no_card, skewed_graph):
         GCN(8, 4, 3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GIN(8, 4, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GAT(8, 4, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InputProperty(g, hidden_dim=4, model="gat").decider().build_tensors()
     hts = (hybrid_agg.build_hybrid_tensors(hg, device="cpu"),) * 2
     x = np.zeros((hg.num_rows, 8), np.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -218,6 +229,48 @@ def test_cuda_tensors_never_reach_the_plain_version(kernel, monkeypatch):
             _cuda_typed(torch.zeros((100, 8))), src, mask, t2b, ptr, 512, 256,
             addend=_cuda_typed(torch.zeros((512, 8))))
     assert got == "launched" and launched == [kernel]
+
+
+@pytest.mark.parametrize("kernel", gat_cuda.KERNELS)
+def test_cuda_tensors_never_reach_the_attention_plain_version(kernel,
+                                                             monkeypatch):
+    """The attention kernels' wrappers, as above: CUDA operands reach the
+    launcher, never the plain version."""
+    launched = []
+
+    def plain(*args, **kwargs):
+        raise AssertionError(f"{kernel}: CUDA operands reached the plain version")
+
+    for name in ("edge_softmax", "aggregate", "sddmm", "col_reduce"):
+        monkeypatch.setattr(gat_cuda, f"{name}_plain", plain)
+        monkeypatch.setattr(
+            gat_cuda, f"_{name}_cuda",
+            lambda *a, _n=name: launched.append(_n) or "launched")
+    lay = build_gat_layout(synthesize_graph(50, 300, num_features=8,
+                                            num_classes=3, seed=2))
+    rows, cols = (gat_cuda.Walk(*(_cuda_typed(t) if isinstance(
+        t, torch.Tensor) else t for t in dataclasses.astuple(
+            gat_cuda.Walk.of(w, "cpu")))) for w in (lay.rows, lay.cols))
+    n, e, k, f = 50, lay.num_edges, 8, 8
+
+    def zeros(*shape, dtype=torch.float32):
+        return _cuda_typed(torch.zeros(shape, dtype=dtype))
+
+    if kernel == "gat_softmax":
+        got = gat_cuda.edge_softmax(rows.ptr, rows.idx, zeros(n, k),
+                                    zeros(n, k), 0.2)
+    elif kernel == "gat_aggregate":
+        got = gat_cuda.aggregate(zeros(n, k * f, dtype=torch.bfloat16), k, f,
+                                 cols, zeros(e, k))
+    elif kernel == "gat_sddmm":
+        got = gat_cuda.sddmm(rows.ptr, rows.idx,
+                             zeros(n, k * f, dtype=torch.bfloat16), k, f,
+                             zeros(n, k * f), zeros(n, k * f), zeros(e, k),
+                             zeros(n, k), zeros(n, k), 0.2)
+    else:
+        got = gat_cuda.col_reduce(zeros(e, k), cols)
+    assert got == "launched" and launched == [kernel[len("gat_"):].replace(
+        "softmax", "edge_softmax")]
 
 
 def test_mixed_devices_are_refused():

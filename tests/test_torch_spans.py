@@ -482,6 +482,62 @@ def test_the_clis_verbose_print_shows_the_set_up_tree(tmp_path, capsys):
     assert any(line.startswith("# Loading (s): ") for line in out)
 
 
+def test_the_clis_verbose_print_shows_the_gat_set_up_tree(tmp_path, capsys):
+    """GAT's set-up through the CLI: the census sorted once under
+    ``decider``, the edge layout under ``layout``; and only this run's
+    spans, after another run in the same process."""
+    g = synthesize_graph(900, 9000, num_features=8, num_classes=3, seed=4)
+    np.savez(tmp_path / "g.npz", src_li=g.edge_index[0],
+             dst_li=g.edge_index[1], num_nodes=g.num_nodes)
+    argv = ["--dataDir", str(tmp_path), "--dataset", "g", "--dim", "8",
+            "--hidden", "4", "--classes", "3", "--num_epoches", "2",
+            "--manual_mode", "False", "--platform", "cpu"]
+    assert cli_main(argv + ["--method", "hybrid"]) == 0
+    capsys.readouterr()
+    rc = cli_main(argv + ["--model", "gat", "--heads", "2", "--out_heads",
+                          "2", "--verbose_mode", "True"])
+    out = capsys.readouterr().out.splitlines()
+    assert rc == 0 and out[-1].startswith("Time (ms): ")
+    at = out.index("# set-up spans (seconds, self seconds):")
+    tree = [line[4:] for line in out[at + 1:] if line.startswith("#   ")]
+    roots = [line.split(":")[0] for line in tree if not line.startswith(" ")]
+    assert roots == ["graph.load", "decider", "layout", "model.init",
+                     "optimizer.init"]
+    names = [line.split(":")[0] for line in tree]
+    layout = names.index("layout")
+    assert names[layout + 1:layout + 3] == ["  layout.edges",
+                                            "  layout.to_device"]
+    decider = names.index("decider")
+    assert names[decider + 1:decider + 3] == ["  decider.census",
+                                              "    census.sort"]
+    counters = next(line for line in out if line.startswith("# counters: "))
+    assert "attn.heads 4" in counters and "census.sorts" in counters
+    assert any(line.startswith("# attention layout: ") for line in out)
+
+
+def test_the_edge_layout_reader_on_a_store_filled_by_hand(store):
+    s = 1_000_000_000
+    lay = _rec(store, "layout", None, 0, 5 * s)
+    _rec(store, "layout.edges", lay, 0, 3 * s)
+    _rec(store, "layout.to_device", lay, 3 * s, 4 * s)
+    assert reader("edge_layout_s").read(ctx()) == 3.0
+    assert reader("layout_pack_s").read(ctx()) == 1.0
+    assert reader("tier_choice_s").read(ctx()) is None  # no decider
+    _rec(store, "decider", None, 0, s)
+    assert reader("tier_choice_s").read(ctx()) == 0.0
+
+
+@pytest.mark.parametrize("case", ["no store", "empty store", "no edges"])
+def test_the_edge_layout_reader_gives_nothing_where_nothing_was_built(
+        case, store, monkeypatch):
+    if case == "no store":
+        monkeypatch.delattr(profiling, "STORE")
+    elif case == "no edges":  # a hybrid layout
+        lay = _rec(store, "layout", None, 0, 5)
+        _rec(store, "layout.pack_slabs", lay, 0, 3)
+    assert reader("edge_layout_s").read(ctx()) is None
+
+
 def _harness_conftest():
     spec = importlib.util.spec_from_file_location(
         "gnnbench_tests_conftest",
