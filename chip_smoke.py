@@ -16,9 +16,11 @@ PyTorch version on the card:
   layouts' shapes, for D in {16, 22, 5} and f32/bf16, x_t given as the
   view of a row-major table, as the aggregation hands it over (the
   residual combine gathering from x by its slot ids, without and with an
-  addend, and stopping, in a process of its own, on a slot id past x),
-  with its time at D = 16 and 22, its byte
-  bound and the time of ``torch.sparse.mm`` over the same edges (the
+  addend, and stopping, in a process of its own, on a slot id past x;
+  the hot list at the auto layout for D in {16, 22, 64, 96}, without and
+  with an addend, exactly, and stopping on an id past x),
+  with its time at D = 16 and 22 (the hot list also at 64 and 96), its
+  byte bound and the time of ``torch.sparse.mm`` over the same edges (the
   residual's over its edges read from x, and ``torch.addmm`` with the
   addend), and the whole transposed aggregation against
   ``torch.sparse.mm`` over all of the graph's edges; then each row-major
@@ -33,12 +35,13 @@ PyTorch version on the card:
   graph's edges;
 - phase 3: GCN 96 -> 16 -> 22 training on the auto layout (transposed):
   the first step's loss and gradients against the plain path, launch
-  counts and ``index_select`` gathers (the hot table's alone),
+  counts and ``index_select`` gathers (none: the hot tier is a list),
   ``epoch_ms`` over timed epochs through the captured step (a CUDA graph
   replayed, ``train_and_time``'s default), and the device time of three
   replays by kernel (``torch.profiler``);
-- phase 4: the other transposed wirings (fused diag+hot; diag 4096 with a
-  residual that does not cover every block) for a few steps each;
+- phase 4: the other transposed wirings (diag 512 + the hot list; diag
+  512 + a hot slab of 32 columns, smaller than its list, fused; diag 4096
+  with a residual that does not cover every block) for a few steps each;
 - phase 5: GIN 96 -> 64 x4 -> 22 training on the auto layout, row-major:
   the first step against the plain path at f32 and at bf16 aggregation,
   launch counts and ``index_select`` gathers (the hot table's alone),
@@ -241,7 +244,7 @@ from gnnadvisor_osdi21_tpu_torch.train import (
     nll_loss, train_and_time, warm_up,
 )
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import (
-    build_hybrid_tensors, build_layer_tensors, hybrid_aggregate,
+    build_hybrid_tensors, build_layer_tensors, hot_list, hybrid_aggregate,
 )
 from gnnadvisor_osdi21_tpu_torch.parallel import dist_hybrid
 from gnnadvisor_osdi21_tpu_torch.parallel.dist_hybrid import local_tensors
@@ -301,6 +304,7 @@ SOURCES = {
     "slab_matmul": "gnnadvisor_osdi21_tpu_torch/csrc/slab.cu",
     "fused_slab_matmul": "gnnadvisor_osdi21_tpu_torch/csrc/slab.cu",
     "residual_combine": "gnnadvisor_osdi21_tpu_torch/csrc/residual.cu",
+    "hot_list_t": "gnnadvisor_osdi21_tpu_torch/csrc/hot_list.cu",
     "bit_slab_t": "gnnadvisor_osdi21_tpu_torch/csrc/bit_walk.cu",
     "i8_slab_t": "gnnadvisor_osdi21_tpu_torch/csrc/dense_slab.cu",
     "dense_slab": "gnnadvisor_osdi21_tpu_torch/csrc/dense_slab.cu",
@@ -318,6 +322,9 @@ REPLACES = {
     "slab_matmul": "gnnadvisor_osdi21_tpu/ops/spmm_pallas.py:143",
     "fused_slab_matmul": "gnnadvisor_osdi21_tpu/ops/spmm_pallas.py:259",
     "residual_combine": "gnnadvisor_osdi21_tpu/ops/spmm_pallas.py:354",
+    # the hot tier as lists replaces no TPU kernel: the JAX package walks
+    # the hot slab (slab_matmul_t's hot wiring)
+    "hot_list_t": None,
     "bit_slab_t": "gnnadvisor_osdi21_tpu/bench/fixprobe.py:63",
     "i8_slab_t": "gnnadvisor_osdi21_tpu/bench/fixprobe.py:94",
     "dense_slab": "gnnadvisor_osdi21_tpu/bench/stepprobe.py:69",
@@ -361,8 +368,10 @@ AMAZON_CLI = ["--synthetic", "410236:4878874:web", "--manual_mode", "False",
 # (the kernels and reductions are deterministic)
 CAPTURE_RTOL = 1e-6
 # phase 15: breakdown's (diag_b, hot_k) sweep (the headline's diagonal
-# block alone, the cost model's hot-4096 layout, both slabs fused)
-BREAKDOWN_TIERS = "512:0,0:4096,512:512"
+# block alone, the cost model's hot-4096 layout, the diagonal slab and the
+# hot list, and a hot tier of 32 columns, whose slab is always smaller
+# than its list: both slabs fused)
+BREAKDOWN_TIERS = "512:0,0:4096,512:512,512:32"
 # phase 16: the roster GIN's input widths that no earlier phase runs (ppi,
 # soc-BlogCatalog, pubmed, TWITTER-Real-Graph-Partial): GIN aggregates
 # before its GEMM, so its first layer aggregates at the input width
@@ -702,11 +711,18 @@ def phase2(layouts, recs) -> None:
     hg, fg, sg = head.hybrid_graph, fixed.hybrid_graph, small.hybrid_graph
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     log("phase 2: kernels against their plain versions on the card")
+    # the hot tiers went to the card as lists (their slabs are larger);
+    # the slab kernels' hot wiring is checked on the slabs themselves
+    require(hts[0].hot_bits is None and hts[0].hot_src is not None
+            and fts[0].hot_bits is None and fts[0].hot_src is not None,
+            "the amazon0505-scale layouts' hot tiers are lists on the card")
+    hot_bits = torch.from_numpy(hg.hot_bits).to(DEVICE)
+    fixed_hot_bits = torch.from_numpy(fg.hot_bits).to(DEVICE)
 
     # --- slab_matmul_t: hot K=4096, diag B=512 and B=4096 ---------------
     # x_t as the aggregation hands it over: the view of a row-major table
     rec = recs["slab_matmul_t"]
-    cases = [("hot K=4096", hts[0].hot_bits, None, hg.hot_k),
+    cases = [("hot K=4096", hot_bits, None, hg.hot_k),
              ("diag B=512", fts[0].diag_bits, 512, fg.num_rows),
              ("diag B=4096", sts[0].diag_bits, 4096, sg.num_rows)]
     for label, bits, block, cols in cases:
@@ -717,8 +733,8 @@ def phase2(layouts, recs) -> None:
                 compare(rec, f"slab_matmul_t {label} D={d} {dt}",
                         lambda: spmm_cuda.slab_matmul_t(bits, xv, block),
                         lambda: spmm_cuda.slab_matmul_t_plain(bits, x, block))
-    # timed at the main path's aggregations: hot, D=16 and 22, bf16
-    bits = hts[0].hot_bits
+    # timed at the slab form of the main path's hot tier, D=16 and 22, bf16
+    bits = hot_bits
     j, r = bit_coords(hg.hot_bits)
     a = csr(r, j, (hg.num_rows, hg.hot_k))
     for d in (16, 22):
@@ -734,7 +750,7 @@ def phase2(layouts, recs) -> None:
 
     # --- fused_slab_matmul_t at (512, 512) ------------------------------
     rec = recs["fused_slab_matmul_t"]
-    dbits, hbits = fts[0].diag_bits, fts[0].hot_bits
+    dbits, hbits = fts[0].diag_bits, fixed_hot_bits
     for d in DIMS:
         for dt in DTYPES:
             x = features(d, fg.num_rows, dt, gen)
@@ -764,6 +780,65 @@ def phase2(layouts, recs) -> None:
               dbits.numel() * 2 + hbits.numel() * 2 + x.numel() * 2
               + xh.numel() * 2 + d * fg.num_rows * 4, nnz * d,
               record=d == 16)
+
+    # --- hot_list_t: the auto layout's hot tier (and the fixed layout's,
+    # with the diagonal slab's sum as its addend), exactly: the kernel and
+    # its plain version add the same values in the same order --------------
+    rec = recs["hot_list_t"]
+    ht, ft = hts[0], fts[0]
+    lens = np.diff(ht.hot_ptr.cpu().numpy())
+    log(f"  hot list (auto layout): {int(lens.sum())} entries, {len(lens)} "
+        f"rows, a row mean {lens.mean():.3f}, p99 "
+        f"{np.percentile(lens, 99):.0f}, max {lens.max()}")
+    for label, t, rows in (("auto hot 4096", ht, hg.num_rows),
+                           ("(512, 512) hot 512", ft, fg.num_rows)):
+        for d in (16, 22, 64, 96):
+            for dt in DTYPES:
+                x = features(d, rows, dt, gen)
+                xv = as_table(x)
+                h = features(d, rows, torch.float32, gen)
+                for add in (None, h):
+                    compare(rec, f"hot_list_t {label} D={d} {dt}"
+                            f"{'' if add is None else ' + addend'}",
+                            lambda: spmm_cuda.hot_list_t(
+                                xv, t.hot_ptr, t.hot_src, add),
+                            lambda: spmm_cuda.hot_list_t_plain(
+                                x, t.hot_ptr, t.hot_src, add),
+                            0.0, "exact, the same adds in the same order")
+    residual_rejects_bad_ids("hot_list_t", BAD_ID_RUN_HOT)
+    # timed at the main path's aggregations (GCN's D=16 and 22, GIN's 96
+    # and 64), bf16, beside the slab path it replaces (the hot rows'
+    # gather and the slab walk); bound: the list, its pointers and the
+    # output (and the addend) once
+    a_hot = torch.sparse_csr_tensor(
+        ht.hot_ptr.to(torch.int64), ht.hot_src.to(torch.int64),
+        torch.ones(ht.hot_src.numel(), device=DEVICE),
+        (hg.num_rows, hg.num_rows))
+    hot_ids = torch.from_numpy(hg.hot_ids).to(DEVICE, torch.int64)
+    list_bytes = ht.hot_ptr.numel() * 4 + ht.hot_src.numel() * 4
+    nnz = ht.hot_src.numel()
+    for d in (16, 22, 64, 96):
+        x = features(d, hg.num_rows, torch.bfloat16, gen)
+        table = spmm_cuda.row_table_t(x)
+        xv = table.t()[:d]
+        xr = x.float().t().contiguous()
+        h = features(d, hg.num_rows, torch.float32, gen)
+        hr = h.t().contiguous()
+        out_bytes = d * hg.num_rows * 4
+        timed(rec, f"auto hot 4096 D={d} bf16 ({nnz} entries)",
+              lambda: spmm_cuda.hot_list_t(xv, ht.hot_ptr, ht.hot_src),
+              lambda: spmm_cuda.hot_list_t_plain(x, ht.hot_ptr, ht.hot_src),
+              lambda: torch.sparse.mm(a_hot, xr), list_bytes + out_bytes,
+              nnz * d, record=d == 16)
+        timed(rec, f"auto hot 4096 D={d} bf16, + addend",
+              lambda: spmm_cuda.hot_list_t(xv, ht.hot_ptr, ht.hot_src, h),
+              None, lambda: torch.addmm(hr, a_hot, xr),
+              list_bytes + 2 * out_bytes, nnz * d, record=False,
+              lib_name="torch.addmm (f32 CSR)")
+        slab_ms = time_ms(lambda: spmm_cuda.slab_matmul_t(
+            hot_bits, table.index_select(0, hot_ids).t()[:d]))
+        log(f"    the slab path it replaces (the hot rows' gather and "
+            f"slab_matmul_t) D={d}: {slab_ms:.4f} ms")
 
     # --- residual_combine_t at (OB 512, S 256): covering or not ---------
     # every stream gathering its slot rows from x by res_src, without and
@@ -845,8 +920,8 @@ def phase2(layouts, recs) -> None:
                 f"transposed aggregation D={d} disagrees with the edges")
         ms = time_ms(lambda: hybrid_aggregate(x, ht, False))
         lib = time_ms(lambda: torch.sparse.mm(a_all, xf))
-        log(f"  transposed aggregation (table, hot gather, hot slab, "
-            f"residual + addend) D={d}, bf16 aggregation of f32 x: "
+        log(f"  transposed aggregation (table, hot list, residual + "
+            f"addend) D={d}, bf16 aggregation of f32 x: "
             f"{ms:.4f} ms, torch.sparse.mm (f32 CSR, all {g.nnz} edges) "
             f"{lib:.4f} ms; max_abs_err against it {err:.3e} "
             "(tolerance 1e-4 + 2^-16·(A·|x|))")
@@ -915,18 +990,31 @@ print("no error")
 '''
 
 
+BAD_ID_RUN_HOT = '''
+import torch
+from gnnadvisor_osdi21_tpu_torch.ops import spmm_cuda
+x_t = spmm_cuda.row_table_t(torch.ones((8, 64), device="cuda")).t()
+ptr = torch.tensor([0, 2, 3], dtype=torch.int32, device="cuda")
+src = torch.tensor([1, 64, 3], dtype=torch.int32, device="cuda")
+spmm_cuda.hot_list_t(x_t, ptr, src)
+torch.cuda.synchronize()
+print("no error")
+'''
+
+
 def residual_rejects_bad_ids(name: str, run: str) -> None:
-    """The residual kernel ``name`` on the card stops on a slot id outside
-    x (one row past it) rather than reading past x."""
+    """The kernel ``name`` (a residual kernel, or the hot list) on the card
+    stops on an id outside x (one row past it) rather than reading past
+    x."""
     proc = subprocess.run(
         [sys.executable, "-c", run], capture_output=True, text=True,
         timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
     said = (proc.stdout + proc.stderr).strip().splitlines()
-    log(f"  {name} with a slot id past x: exit {proc.returncode}, "
+    log(f"  {name} with an id past x: exit {proc.returncode}, "
         f"{said[-1] if said else 'no output'}")
     require(proc.returncode != 0 and "no error" not in proc.stdout
             and "assert" in proc.stderr.lower(),
-            f"{name} read a slot id outside x without an error")
+            f"{name} read an id outside x without an error")
 
 
 def phase2_rowmajor(layouts, rm, recs) -> None:
@@ -1135,6 +1223,7 @@ def plain_kernels():
         "slab_matmul": spmm_cuda.slab_matmul_plain,
         "fused_slab_matmul": spmm_cuda.fused_slab_matmul_plain,
         "residual_combine": spmm_cuda.residual_combine_plain,
+        "hot_list_t": spmm_cuda.hot_list_t_plain,
     }
     try:
         for n, fn in plain.items():
@@ -1283,12 +1372,12 @@ def phase3(layouts, recs) -> float:
     g, head, hts = layouts[0]
     log("phase 3: GCN 96 -> 16 -> 22 on the amazon0505-scale auto layout")
     counts, gathers = first_step(g, head, hts, "auto layout")
-    require(counts == {**NO_LAUNCHES, "slab_matmul_t": 4,
+    require(counts == {**NO_LAUNCHES, "hot_list_t": 4,
                        "residual_combine_t": 4},
-            "one GCN step launches 4 hot slab and 4 residual kernels")
-    require(gathers == 4, "one GCN step gathers 4 times (the hot table of "
-            "each aggregation; the residual kernel gathers its slot rows "
-            "itself)")
+            "one GCN step launches 4 hot list and 4 residual kernels")
+    require(gathers == 0, "one GCN step gathers nothing (the hot list reads "
+            "x's rows in place, and the residual kernel gathers its slot "
+            "rows itself)")
     res, counts = train(g, head, hts, epochs=TIMED_EPOCHS, dry=5)
     steps = res["step"]
     log(f"  trained {steps} steps ({res['replays']} replays of the captured "
@@ -1296,10 +1385,10 @@ def phase3(layouts, recs) -> float:
         f"kernel runs {counts}; wrapper launches "
         f"{ {k: v for k, v in spmm_cuda.launches.items() if v} }, "
         f"{ {k: v for k, v in res['graph_launches'].items() if v} } a replay")
-    require(counts == {**NO_LAUNCHES, "slab_matmul_t": 4 * steps,
+    require(counts == {**NO_LAUNCHES, "hot_list_t": 4 * steps,
                        "residual_combine_t": 4 * steps},
             "hot and residual kernels run exactly 4 times per step")
-    recs["slab_matmul_t"].launches = spmm_cuda.launches["slab_matmul_t"]
+    recs["hot_list_t"].launches = spmm_cuda.launches["hot_list_t"]
     recs["residual_combine_t"].launches = spmm_cuda.launches[
         "residual_combine_t"]
     log_windows("epoch_ms (captured)", res)
@@ -1322,15 +1411,34 @@ def phase4(layouts, recs) -> None:
     log("phase 4: the other wirings")
     g, fixed, fts = layouts[1]
     _, gathers = first_step(g, fixed, fts, "diag 512 + hot 512")
-    require(gathers == 4, "one GCN step gathers the hot table 4 times")
+    require(gathers == 0, "a GCN step with the hot tier as a list gathers "
+            "nothing")
     _, counts = train(g, fixed, fts, epochs=0, dry=3)
-    log(f"  diag 512 + hot 512, 3 steps: launches {counts}")
-    require(counts == {**NO_LAUNCHES, "fused_slab_matmul_t": 12,
+    log(f"  diag 512 + hot 512 (list), 3 steps: launches {counts}")
+    require(counts == {**NO_LAUNCHES, "slab_matmul_t": 12, "hot_list_t": 12,
                        "residual_combine_t": (
                            12 if fixed.hybrid_graph.num_res_slots else 0)},
+            "the diagonal slab and the hot list (adding the slab's sum) "
+            "launch once each per aggregation")
+    recs["slab_matmul_t"].launches += counts["slab_matmul_t"]
+    g10, small, sts = layouts[2]
+    # a hot tier of 32 columns: its slab (4 bytes a row) is always smaller
+    # than its list (4 bytes a row and 4 an entry), so it stays a slab
+    thin = InputProperty(g10, hidden_dim=16, diag_b=512, hot_k=32,
+                         probe=False).decider()
+    tts = thin.build_tensors()
+    require(tts[0].hot_bits is not None and tts[0].hot_src is None,
+            "a 32-column hot tier goes to the card as its slab")
+    _, gathers = first_step(g10, thin, tts, "10k diag 512 + hot 32 (slab)")
+    require(gathers == 4, "one GCN step gathers the hot slab's table 4 "
+            "times")
+    _, counts = train(g10, thin, tts, epochs=0, dry=3)
+    log(f"  10k diag 512 + hot 32 (slab), 3 steps: launches {counts}")
+    require(counts == {**NO_LAUNCHES, "fused_slab_matmul_t": 12,
+                       "residual_combine_t": (
+                           12 if thin.hybrid_graph.num_res_slots else 0)},
             "both slab tiers run as one fused launch per aggregation")
     recs["fused_slab_matmul_t"].launches = counts["fused_slab_matmul_t"]
-    g10, small, sts = layouts[2]
     _, gathers = first_step(g10, small, sts, "10k power-law")
     require(gathers == 0, "a layout without a hot tier gathers nothing")
     _, counts = train(g10, small, sts, epochs=0, dry=3)
@@ -1339,6 +1447,7 @@ def phase4(layouts, recs) -> None:
     require(counts == {**NO_LAUNCHES, "slab_matmul_t": 12,
                        "residual_combine_t": 12},
             "diag-4096 and residual kernels launch 4 times per step")
+    recs["slab_matmul_t"].launches += counts["slab_matmul_t"]
 
 
 def profile_steps(graph, prop, hts, model: str, hidden: int,
@@ -2085,16 +2194,22 @@ def phase10(recs) -> None:
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
 
 
-def hybrid_step_counts(hg, transposed: bool, per_step: int) -> dict:
-    """Launches of ``per_step`` aggregations on a hybrid layout: one slab
-    launch each (fused where both slab tiers exist) and one residual."""
-    sfx = "_t" if transposed else ""
+def hybrid_step_counts(ht, per_step: int) -> dict:
+    """Launches of ``per_step`` aggregations on a layout's tensors ``ht``:
+    one slab launch each (fused where both slab tiers exist), or, where the
+    hot tier is a list, one list launch and one diagonal slab launch where
+    that tier exists; and one residual."""
+    sfx = "_t" if ht.transposed else ""
     counts = dict(NO_LAUNCHES)
-    if hg.diag_b and hg.hot_k:
+    if ht.hot_src is not None:
+        counts["hot_list_t"] = per_step
+        if ht.diag_b:
+            counts["slab_matmul_t"] = per_step
+    elif ht.diag_b and ht.hot_k:
         counts["fused_slab_matmul" + sfx] = per_step
-    elif hg.diag_b or hg.hot_k:
+    elif ht.diag_b or ht.hot_k:
         counts["slab_matmul" + sfx] = per_step
-    if hg.num_res_slots:
+    if ht.res_t2b is not None:
         counts["residual_combine" + sfx] = per_step
     return counts
 
@@ -2197,11 +2312,11 @@ def phase11(layouts, epoch_ms: float) -> None:
         f"covers_all={hg.res_covers_all} rows={hg.num_rows} "
         f"({time.perf_counter() - start:.1f} s)")
     counts, _ = first_step(rg, prop, hts, "reordered auto layout")
-    require(counts == hybrid_step_counts(hg, True, 4),
+    require(counts == hybrid_step_counts(hts[0], 4),
             "one GCN step on the reordered layout launches its tiers' "
             "kernels 4 times each")
     res, counts = train(rg, prop, hts, epochs=SHORT_EPOCHS, dry=2)
-    require(counts == hybrid_step_counts(hg, True, 4 * res["step"]),
+    require(counts == hybrid_step_counts(hts[0], 4 * res["step"]),
             "the tiers' kernels launch 4 times per step")
     log(f"  trained {res['step']} steps: launches "
         f"{ {k: v for k, v in counts.items() if v} }; information: epoch_ms "
@@ -2684,8 +2799,8 @@ def phase15(recs) -> None:
                      ["--iters", "10", "--tiers", BREAKDOWN_TIERS], recs)
     require(any("against the whole: exact" in ln for ln in out),
             "breakdown's tiers add up to its whole aggregation")
-    require(sum(ln.startswith("diag_b=") for ln in out) == 3,
-            "breakdown timed its three tier configs")
+    require(sum(ln.startswith("diag_b=") for ln in out) == 4,
+            "breakdown timed its four tier configs")
     run_driver("breakdown --rowmajor --only hybrid", breakdown.main,
                ["--iters", "10", "--rowmajor", "--only", "hybrid"], recs)
     # the probed layout has had no hot tier so far: each of the three
@@ -2811,6 +2926,10 @@ def wide_kernels(g10, recs) -> None:
     require(hg.num_res_slots > 0, "the 10k (512, 512) layout has a residual")
     tt = build_hybrid_tensors(hg, device=DEVICE, transposed=True)
     tr = build_hybrid_tensors(hg, device=DEVICE, transposed=False)
+    # the hot tier in both forms, whichever the transposed tensors took
+    hot_bits = torch.from_numpy(hg.hot_bits).to(DEVICE)
+    hot_ptr, hot_src = (torch.from_numpy(a).to(DEVICE)
+                        for a in hot_list(hg.hot_bits, hg.hot_ids))
     r, b = hg.num_rows, hg.diag_b
     res_t = (tt.res_src, tt.res_mask_s, tt.res_t2b, tt.res_block_ptr, r,
              hg.res_ob)
@@ -2833,10 +2952,12 @@ def wide_kernels(g10, recs) -> None:
         ("slab_matmul_t", "diag", lambda m, x, a: m.slab_matmul_t(
             tt.diag_bits, views(x)[2], b)),
         ("slab_matmul_t", "hot", lambda m, x, a: m.slab_matmul_t(
-            tt.hot_bits, views(x)[3])),
+            hot_bits, views(x)[3])),
         ("fused_slab_matmul_t", "diag+hot", lambda m, x, a:
-            m.fused_slab_matmul_t(tt.diag_bits, tt.hot_bits,
+            m.fused_slab_matmul_t(tt.diag_bits, hot_bits,
                                   *views(x)[2:], b)),
+        ("hot_list_t", "", lambda m, x, a: m.hot_list_t(
+            views(x)[2], hot_ptr, hot_src, addend=t(a))),
         ("residual_combine_t", "", lambda m, x, a: m.residual_combine_t(
             views(x)[2], *res_t, addend=t(a))),
         ("slab_matmul", "diag", lambda m, x, a: m.slab_matmul(
@@ -2856,7 +2977,7 @@ def wide_kernels(g10, recs) -> None:
             h = int_features((r, d), torch.float32, gen)
             for name, label, call in kernels:
                 for add in ((None, h) if name.startswith("residual")
-                            else (None,)):
+                            or name == "hot_list_t" else (None,)):
                     compare(recs[name], f"{name} {label} D={d} {dt} integer"
                             f"{'' if add is None else ' + addend'}",
                             lambda: call(spmm_cuda, x, add),

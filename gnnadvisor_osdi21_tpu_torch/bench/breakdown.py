@@ -14,9 +14,10 @@ data the cost model in ``graphs/hybrid.py`` is fitted to.  Sections
   x in the tier dtype, as the pipeline hands it to them;
 - ``rest``: the transposed residual alone (the table pass and
   ``residual_tier_t``);
-- ``slabt``: both slab tiers in one ``fused_slab_matmul_t`` launch
-  (``ops/hybrid_agg.slab_tiers_t``: the table pass and the hot rows'
-  gather, as the pipeline runs them);
+- ``slabt``: the diagonal and hot tiers (``ops/hybrid_agg.slab_tiers_t``:
+  the table pass, then one ``fused_slab_matmul_t`` launch after the hot
+  rows' gather, or the diagonal slab and the hot list, as the pipeline
+  runs them);
 - ``tiers``: ``sag`` over the ``--tiers`` list of (diag_b, hot_k);
 - ``geom``: one line.  The JAX script sweeps the TPU kernels' block rows;
   the CUDA kernels size their own launches, so there is nothing to sweep.
@@ -176,7 +177,7 @@ def main(argv=None) -> int:
             def slab_only(a, h):
                 return slab_tiers_t(table_of(a, h), a.shape[0], h)
 
-            run("fused slab only (transposed)", slab_only, x, ht)
+            run("slab tiers only (transposed)", slab_only, x, ht)
 
     present = {name for name, on in (("diag", hg.diag_b), ("hot", hg.hot_k),
                                      ("res", hg.num_res_slots)) if on}

@@ -794,7 +794,9 @@ PROBE_ROW_LIMIT = 150_000  # always probe below this many rows
 PROBE_BUILD_ROW_CAP = 3_000_000  # default-auto never probes above this
 PROBE_ITERS = 100
 PROBE_MARGIN = 0.05  # a challenger must beat the model pick by >5%
-PROBE_CACHE_VERSION = 1  # bump when the probe protocol/constants change
+# bump when the probe protocol/constants change, or what it times (2: the
+# transposed hot tier walked as per-row lists, ops/hybrid_agg.hot_list)
+PROBE_CACHE_VERSION = 2
 CACHE_DIR_ENV = "GNNADVISOR_TORCH_CACHE_DIR"  # overrides the cache directory
 _DEFAULT_CACHE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_cache"

@@ -54,6 +54,8 @@ SIGNATURES = {
     "gnna_residual_combine": (
         _P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P,
     ),
+    # ptr, src, x, rows, Dx, R, D, addend, bf16, out, stream (hot_list.cu)
+    "gnna_hot_list_t": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P),
     # the probes' bit slabs, walked over their set bits (csrc/bit_walk.cu):
     # bits, w32, R, x_t, table (scratch), block_rows, out, stream
     "gnna_bit_slab_t": (_P, _I, _I, _P, _P, _I, _P, _P),

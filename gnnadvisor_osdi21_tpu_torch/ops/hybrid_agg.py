@@ -7,16 +7,19 @@ The port of ``gnnadvisor_osdi21_tpu/ops/hybrid_agg.py``, per layout
 
 - diagonal tier: ``spmm_cuda.slab_matmul[_t]`` with the block-local wiring,
 - hot tier: ``spmm_cuda.slab_matmul[_t]`` against the gathered hot-node
-  table,
-- both at once: ``spmm_cuda.fused_slab_matmul[_t]``,
+  table, or, transposed and where its per-row lists are smaller than its
+  slab (``hot_list_wins``), ``spmm_cuda.hot_list_t`` over those lists,
+  which reads x's rows in place and adds the diagonal tier's sum,
+- both slabs at once: ``spmm_cuda.fused_slab_matmul[_t]``,
 - residual tier: ``spmm_cuda.residual_combine[_t]`` alone, which gathers
   the slot rows from x by ``res_src`` itself (one or two XLA gathers
   outside the kernel in the JAX package) and adds the slab tiers' sum.
 
 The transposed path first writes x, scaled and cast, into one row-major
 table (``spmm_cuda.row_table_t``) and hands every tier a view of it: the
-diagonal tier and the residual gather read it in place, and the hot tier
-reads its rows gathered by ``hot_ids``, so no kernel call transposes x.
+diagonal tier, the hot list and the residual gather read it in place, and
+the hot slab reads its rows gathered by ``hot_ids``, so no kernel call
+transposes x.
 
 Every reduction is deterministic; there are no atomics.  All arrays live
 in the padded row space [num_rows]; the loss masks padding rows out.
@@ -47,7 +50,10 @@ class HybridTensors:
     block's tile range for the residual kernels; each slot's row of x is
     ``res_src`` (``res_gather[res_dst]``, whatever the JAX gather's
     stages), which the residual kernels gather by themselves, in place of
-    ``res_gather``/``res_dst``; and the TPU kernel geometry
+    ``res_gather``/``res_dst``; the hot tier is either its slab
+    (``hot_bits`` with ``hot_ids``) or, transposed where the lists are
+    smaller (``hot_list_wins``), its per-row lists (``hot_ptr`` with
+    ``hot_src``, ``hot_list``), never both; and the TPU kernel geometry
     (``block_rows``, ``feature_tile``) is gone: the kernels choose their
     own geometry."""
 
@@ -61,6 +67,8 @@ class HybridTensors:
     res_t2b: Optional[torch.Tensor]  # [T] int32 tile -> out block, sorted
     res_block_ptr: Optional[torch.Tensor]  # [num_rows/res_ob + 1] int32
     res_src: Optional[torch.Tensor]  # [M_pad] int32 slot -> x row
+    hot_ptr: Optional[torch.Tensor] = None  # [R+1] int32 list offsets
+    hot_src: Optional[torch.Tensor] = None  # [nnz] int32 entry -> x row
     num_rows: int = 0
     real_nodes: int = 0
     diag_b: int = 0
@@ -78,6 +86,64 @@ class HybridTensors:
         return "hybrid"
 
 
+def hot_list_wins(hg: HybridGraph) -> bool:
+    """Whether the hot tier's per-row lists take fewer bytes than its slab:
+    4 an entry (the layout's hot edges) and 4 a row against the slab's
+    2·K/16 a row.  At amazon0505 (hot 4096, 7.6 edges a row) about 35
+    against 512."""
+    if not hg.hot_k:
+        return False
+    r = hg.hot_bits.shape[1]
+    return 4 * (hg.num_hot_edges + r + 1) < 2 * hg.hot_bits.shape[0] * r
+
+
+def _set_words(bits: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The flat positions of a uint16 array's non-zero words, and the
+    words; scanned as uint64 (four words a test) where the size allows."""
+    flat = bits.reshape(-1)
+    if flat.size % 4 or not np.little_endian:
+        pos = np.flatnonzero(flat)
+        return pos, flat[pos]
+    quads = flat.view(np.uint64)
+    at = np.flatnonzero(quads != 0)
+    q = quads[at]
+    pos, words = [], []
+    for lane in range(4):  # word 4i + lane is bits 16·lane.. of quad i
+        w = (q >> np.uint64(16 * lane)).astype(np.uint16)
+        on = np.flatnonzero(w)
+        pos.append(at[on] * 4 + lane)
+        words.append(w[on])
+    return np.concatenate(pos), np.concatenate(words)
+
+
+# the index of the lowest set bit of every uint16 value (0 for 0)
+_LOW_BIT = np.zeros(1 << 16, dtype=np.int64)
+_LOW_BIT[1:] = np.log2(np.arange(1, 1 << 16) & -np.arange(1, 1 << 16))
+
+
+def hot_list(hot_bits: np.ndarray,
+             hot_ids: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The hot slab's edges as per-row lists: ``hot_ptr`` int32 [R+1] and
+    ``hot_src`` int32 [nnz], each row's entries in ascending slab column
+    j, each the row of x that column reads (``hot_ids[j]``).  Column j is
+    word ``j % W16``, bit ``j // W16`` of the slab ``[W16, R]``."""
+    w16, r = hot_bits.shape
+    k = w16 * 16
+    pos, words = _set_words(hot_bits)
+    w, row = np.divmod(pos, r)
+    keys = []  # row·K + j, one for each set bit
+    while len(words):
+        keys.append(row * k + _LOW_BIT[words] * w16 + w)
+        words = words & (words - np.uint16(1))
+        live = np.flatnonzero(words)
+        words, row, w = words[live], row[live], w[live]
+    key = np.sort(np.concatenate(keys)) if keys else np.zeros(0, np.int64)
+    row, col = np.divmod(key, k)
+    hot_ptr = np.zeros(r + 1, dtype=np.int32)
+    np.cumsum(np.bincount(row, minlength=r), out=hot_ptr[1:])
+    return hot_ptr, hot_ids[col].astype(np.int32)
+
+
 def build_hybrid_tensors(
     hg: HybridGraph,
     device=None,
@@ -91,7 +157,10 @@ def build_hybrid_tensors(
     The residual kernels of both orientations gather each slot's row of x
     once, by ``res_src``, at any width: the JAX package's per-width choice
     between a one- and a two-stage gather (hybrid_agg.py:106-125 there)
-    has no counterpart."""
+    has no counterpart.  Transposed, the hot tier goes to the device as
+    per-row lists where they are smaller than its slab (``hot_list_wins``;
+    counters ``hot_list.builds``, ``hot_list.entries``), and its slab
+    stays on the host."""
     if agg_dtype not in AGG_DTYPES:
         raise ValueError(f"agg_dtype must be one of {sorted(AGG_DTYPES)}")
     dev = resolve_device(device)
@@ -114,12 +183,19 @@ def build_hybrid_tensors(
         if not (res_src.min() >= 0 and res_src.max() < hg.num_rows):
             raise ValueError("residual slot ids fall outside the layout's "
                              f"{hg.num_rows} rows")
+    hot_ptr = hot_src = None
+    as_list = transposed and hot_list_wins(hg)
+    if as_list:
+        hot_ptr, hot_src = hot_list(hg.hot_bits, hg.hot_ids)
+        profiling.count("hot_list.builds")
+        profiling.count("hot_list.entries", len(hot_src))
+    as_slab = bool(hg.hot_k) and not as_list
     return HybridTensors(
         degrees=put(hg.degrees),
         row_mask=put(hg.row_mask),
         diag_bits=put(hg.diag_bits) if hg.diag_b else None,
-        hot_bits=put(hg.hot_bits) if hg.hot_k else None,
-        hot_ids=put(hg.hot_ids, torch.int64) if hg.hot_k else None,
+        hot_bits=put(hg.hot_bits) if as_slab else None,
+        hot_ids=put(hg.hot_ids, torch.int64) if as_slab else None,
         # only the mask the chosen kernels read (the other is 77 MB at
         # amazon0505 scale): hybrid_agg.py:110-114 in the JAX package
         res_mask=put(hg.res_mask) if has_res and not transposed else None,
@@ -127,6 +203,8 @@ def build_hybrid_tensors(
         res_t2b=put(hg.res_t2b) if has_res else None,
         res_block_ptr=put(block_ptr) if has_res else None,
         res_src=None if res_src is None else put(res_src),
+        hot_ptr=put(hot_ptr) if as_list else None,
+        hot_src=put(hot_src) if as_list else None,
         num_rows=hg.num_rows,
         real_nodes=hg.real_nodes,
         diag_b=hg.diag_b,
@@ -160,12 +238,18 @@ def build_layer_tensors(
 
 def slab_tiers_t(table: torch.Tensor, d: int,
                  ht: HybridTensors) -> torch.Tensor | None:
-    """The slab tiers' sum ([D, R] f32, no degree scaling; None when the
-    layout has no slab tier) over x given as its row-major table [R, Dp]
-    (``spmm_cuda.row_table_t``): every tier reads ``table.t()[:d]``, x_t
-    itself, in place, and both slab tiers run as one fused launch where
-    both exist."""
+    """The diagonal and hot tiers' sum ([D, R] f32, no degree scaling;
+    None when the layout has neither) over x given as its row-major table
+    [R, Dp] (``spmm_cuda.row_table_t``): every tier reads
+    ``table.t()[:d]``, x_t itself, in place.  A hot tier in lists adds the
+    diagonal slab's sum as its addend; both slabs run as one fused launch
+    where both exist."""
     x_t = table.t()[:d]
+    if ht.hot_src is not None:
+        diag = spmm_cuda.slab_matmul_t(
+            ht.diag_bits, x_t, table_block_cols=ht.diag_b
+        ) if ht.diag_b else None
+        return spmm_cuda.hot_list_t(x_t, ht.hot_ptr, ht.hot_src, addend=diag)
     x_hot_t = table.index_select(0, ht.hot_ids).t()[:d] if ht.hot_k else None
     if ht.diag_b and ht.hot_k:
         return spmm_cuda.fused_slab_matmul_t(

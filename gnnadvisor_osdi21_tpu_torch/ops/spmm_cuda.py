@@ -1,4 +1,4 @@
-"""The hybrid layout's six kernels, their plain versions and their launch
+"""The hybrid layout's seven kernels, their plain versions and their launch
 counts.
 
 Each kernel has:
@@ -23,7 +23,9 @@ with its ``hot_slab_matmul`` and ``diag_slab_matmul`` wirings) and
 -> csrc/residual.cu.  The slab kernels of both orientations are one walk
 with two epilogues.  Both residual kernels also take over their caller's
 slot gathers (they read the slot rows of x by ``res_src``) and, given an
-addend, the tier sum.
+addend, the tier sum.  The seventh, ``hot_list_t`` (csrc/hot_list.cu),
+replaces no TPU kernel: it walks the hot tier as per-row lists of the
+rows of x each row reads, where those lists are smaller than the slab.
 
 Every kernel reads its features from a row-major table ``[rows, ld]``.
 The transposed wrappers take ``x_t [D, X]`` as the transposed view
@@ -49,7 +51,7 @@ from gnnadvisor_osdi21_tpu_torch.utils import profiling
 
 KERNELS = (
     "slab_matmul_t", "fused_slab_matmul_t", "residual_combine_t",
-    "slab_matmul", "fused_slab_matmul", "residual_combine",
+    "slab_matmul", "fused_slab_matmul", "residual_combine", "hot_list_t",
 )
 # kernel name -> launches since the last reset_launches(): the span
 # store's counters ``launches.<kernel>``
@@ -181,6 +183,26 @@ def residual_combine_t_plain(
     ).to(torch.float32)
     blocks = (onehot @ chunks).reshape(n_blocks, d, res_ob)
     out = blocks.permute(1, 0, 2).reshape(d, num_rows)
+    return out if addend is None else addend + out
+
+
+def hot_list_t_plain(
+    x_t: torch.Tensor, hot_ptr: torch.Tensor, hot_src: torch.Tensor,
+    addend: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """out[D, R] f32: column r is the sum of the columns ``x_t[:,
+    hot_src[k]]``, k in ``hot_ptr[r] .. hot_ptr[r+1]``, added in entry
+    order from zero, as the kernel adds them (so the two agree bit for
+    bit); with ``addend``, ``addend + out``."""
+    d, r = x_t.shape[0], hot_ptr.shape[0] - 1
+    ptr = hot_ptr.to(torch.int64)
+    lens = ptr[1:] - ptr[:-1]
+    src = hot_src.to(torch.int64)
+    x = x_t.to(torch.float32)
+    out = torch.zeros((d, r), dtype=torch.float32, device=x_t.device)
+    for step in range(int(lens.max()) if r else 0):
+        rows = torch.nonzero(lens > step).squeeze(1)
+        out[:, rows] += x[:, src[ptr[rows] + step]]
     return out if addend is None else addend + out
 
 
@@ -436,6 +458,68 @@ def _residual_combine_t_cuda(x_t, res_src, mask_s, block_ptr, t, num_rows,
         )
     _build.check("residual_combine_t", rc)
     launches["residual_combine_t"] += 1
+    return out
+
+
+def hot_list_t(
+    x_t: torch.Tensor, hot_ptr: torch.Tensor, hot_src: torch.Tensor,
+    addend: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """out[D, R] f32: the hot tier walked as per-row lists, features
+    transposed; column r is ``addend[:, r]`` (where given) plus the sum of
+    ``x_t[:, hot_src[k]]`` over k in ``hot_ptr[r] .. hot_ptr[r+1]``.
+
+    ``x_t`` [D, X] as ``slab_matmul_t`` takes it (the transposed view of a
+    row-major table, read in place); ``hot_ptr`` int32 [R + 1], the
+    offsets of each row's entries; ``hot_src`` int32 [nnz], the column of
+    x_t each entry reads (another id raises, at once on the CPU and on
+    the card as a device-side assert at the next synchronisation, as
+    ``index_select`` does); ``addend`` None or f32 [D, R]."""
+    _table_ld("x_t", x_t)
+    _check_index("hot_ptr", hot_ptr)
+    _check_index("hot_src", hot_src)
+    r = hot_ptr.shape[0] - 1
+    if r <= 0:
+        raise ValueError("hot_ptr must hold at least one row's offsets")
+    d = x_t.shape[0]
+    if addend is not None and (
+        addend.dtype != torch.float32 or tuple(addend.shape) != (d, r)
+        or not addend.is_contiguous()
+    ):
+        raise ValueError(
+            f"addend must be a contiguous float32 [{d}, {r}] tensor, got "
+            f"{addend.dtype} {tuple(addend.shape)}"
+        )
+    operands = (x_t, hot_ptr, hot_src) + (() if addend is None else (addend,))
+    if _on_cpu(*operands):
+        # the list is checked here; on the card the kernel asserts each id
+        # it reads (a check here would wait for the card)
+        if (int(hot_ptr[0]) != 0 or int(hot_ptr[-1]) != hot_src.numel()
+                or bool((hot_ptr[1:] < hot_ptr[:-1]).any())):
+            raise ValueError("hot_ptr must rise from 0 to the entries' "
+                             f"count {hot_src.numel()}")
+        if hot_src.numel() and (int(hot_src.min()) < 0
+                                or int(hot_src.max()) >= x_t.shape[1]):
+            raise ValueError(f"hot_src holds ids outside x_t's "
+                             f"{x_t.shape[1]} columns")
+        return hot_list_t_plain(x_t, hot_ptr, hot_src, addend)
+    return _hot_list_t_cuda(x_t, hot_ptr, hot_src, addend)
+
+
+def _hot_list_t_cuda(x_t, hot_ptr, hot_src, addend):
+    d, rows = x_t.shape
+    r = hot_ptr.shape[0] - 1
+    out = torch.empty((d, r), dtype=torch.float32, device=x_t.device)
+    with torch.cuda.device(x_t.device):
+        rc = _build.library().gnna_hot_list_t(
+            hot_ptr.data_ptr(), hot_src.data_ptr(), x_t.data_ptr(), rows,
+            x_t.stride(1), r, d,
+            None if addend is None else addend.data_ptr(),
+            int(x_t.dtype == torch.bfloat16), out.data_ptr(),
+            _stream(x_t.device),
+        )
+    _build.check("hot_list_t", rc)
+    launches["hot_list_t"] += 1
     return out
 
 

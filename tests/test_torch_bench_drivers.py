@@ -162,7 +162,7 @@ def test_breakdown_every_section(graphs, tmp_path, monkeypatch):
     assert names == ["hybrid total (sag)", "diag slab only (rowmajor)",
                      "hot slab only (rowmajor)", "residual only (rowmajor)",
                      "residual only (transposed)",
-                     "fused slab only (transposed)"]
+                     "slab tiers only (transposed)"]
     assert "tiers diag+hot+res against the whole: exact" in out
     assert sum(ln.startswith("diag_b=") for ln in out) == 2
     assert out[-1].startswith("block_rows: not swept")

@@ -26,6 +26,7 @@ from gnnadvisor_osdi21_tpu_torch.ops.aggregate import aggregate
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import (
     build_hybrid_tensors, hybrid_aggregate,
 )
+from gnnadvisor_osdi21_tpu_torch.utils import profiling
 
 
 def jax_slot_rows(jt) -> np.ndarray:
@@ -53,7 +54,15 @@ LAYOUTS = [
                                     res_tile=32), False),
     ("hot", "local", dict(diag_b=0, hot_k=64, res_ob=128, res_tile=32),
      False),
+    ("hot_list", "spread", dict(diag_b=0, hot_k=512, res_ob=128,
+                                res_tile=32), True),
 ]
+# layouts whose hot tier goes to the device as lists, without a residual
+# tier: every column hot
+LIST_LAYOUTS = {
+    "hot_only": dict(diag_b=0, hot_k=1024, res_ob=128, res_tile=32),
+    "diag_hot": dict(diag_b=512, hot_k=1024, res_ob=128, res_tile=32),
+}
 
 
 def _undirected(src, dst, n=1000):
@@ -107,6 +116,51 @@ def test_hybrid_aggregate_matches_jax(graphs, layout, stage, agg_dtype):
         assert_close(got.numpy(), want)
 
 
+@pytest.mark.parametrize("agg_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", sorted(LIST_LAYOUTS))
+def test_hot_list_layouts_match_jax(graphs, layout, agg_dtype):
+    """A hot tier walked as lists, alone or adding the diagonal slab's
+    sum, gives the JAX package's slab aggregation; the layout has no
+    residual tier, so the list's sum is the whole aggregation."""
+    kw = LIST_LAYOUTS[layout]
+    graph = graphs["spread"]
+    jhg, thg = jax_build(graph, probe=False, **kw), build_hybrid(graph, **kw)
+    assert thg.num_res_edges == 0 and thg.num_hot_edges > 0
+    jt = jax_tensors(jhg, agg_dtype=agg_dtype, transposed=True)
+    tt = build_hybrid_tensors(thg, device="cpu", agg_dtype=agg_dtype)
+    assert tt.hot_src is not None and tt.hot_bits is None
+    x = np.random.default_rng(4).standard_normal(
+        (22, thg.num_rows)).astype(np.float32)
+    for norm in (False, True):
+        want = np.asarray(jax_hybrid_aggregate(jnp.asarray(x), jt, norm))
+        got = hybrid_aggregate(torch.from_numpy(x), tt, norm)
+        assert_close(got.numpy(), want)
+
+
+def test_the_hot_list_counters_count(graphs):
+    """``hot_list.builds`` and ``hot_list.entries`` count each tensor
+    build that takes the list, and ``launches["hot_list_t"]`` each launch
+    of its kernel (a CPU call runs the plain version and counts none);
+    the slab's builds and the row-major ones count nothing."""
+    counters = profiling.STORE.counters
+    before = {k: counters.get(k, 0) for k in ("hot_list.builds",
+                                              "hot_list.entries")}
+    graph = graphs["spread"]
+    hg = build_hybrid(graph, **LIST_LAYOUTS["hot_only"])
+    build_hybrid_tensors(hg, device="cpu")
+    build_hybrid_tensors(hg, device="cpu", transposed=False)
+    build_hybrid_tensors(build_hybrid(graph, **LAYOUTS[4][2]), device="cpu")
+    assert counters["hot_list.builds"] - before["hot_list.builds"] == 1
+    assert (counters["hot_list.entries"] - before["hot_list.entries"]
+            == hg.num_hot_edges)
+    assert "hot_list_t" in spmm_cuda.launches
+    spmm_cuda.reset_launches()
+    spmm_cuda.launches["hot_list_t"] += 1  # what a launch on the card adds
+    assert counters["launches.hot_list_t"] == 1
+    assert "launches.hot_list_t 1" in profiling.format_counters()
+    spmm_cuda.reset_launches()
+
+
 def test_aggregate_backward_is_the_same_aggregation(graphs):
     """The custom backward applies the forward aggregation to the incoming
     gradient, as the JAX custom_vjp does."""
@@ -131,11 +185,13 @@ def test_aggregate_backward_is_the_same_aggregation(graphs):
 def test_transposed_tiers_gather_only_the_hot_table(graphs, layout,
                                                     monkeypatch):
     """Outside the kernels the transposed tiers gather the hot table alone
-    (one ``index_select`` when the layout has a hot tier, else none): the
-    residual kernel reads its slot rows from x by ``res_src`` itself, and
-    adds the slab tiers' sum, so no separate sum runs either; and every
-    kernel gets its features as the view of one row-major table."""
-    _, name, kw, _ = layout
+    (one ``index_select`` when the layout's hot tier is a slab, none when
+    it is a list or absent): the hot list reads x's rows in place and adds
+    the diagonal slab's sum, the residual kernel reads its slot rows from
+    x by ``res_src`` itself and adds the slab tiers' sum, so no separate
+    sum runs either; and every kernel gets its features as the view of one
+    row-major table."""
+    label, name, kw, _ = layout
     tt = build_hybrid_tensors(build_hybrid(graphs[name], **kw), device="cpu")
     gathers, adds, inside, operands = [], [], [], []
     select, add = torch.Tensor.index_select, torch.Tensor.__add__
@@ -169,7 +225,8 @@ def test_transposed_tiers_gather_only_the_hot_table(graphs, layout,
         (6, tt.num_rows)).astype(np.float32))
     hybrid_aggregate(x, tt, False)
     assert tt.res_src is not None
-    assert len(gathers) == (1 if tt.hot_k else 0)
+    assert (tt.hot_src is not None) == (tt.hot_k > 0 and label != "hot")
+    assert len(gathers) == (1 if tt.hot_bits is not None else 0)
     assert adds == []
     # features (not the addend) arrive as the transposed view of a table
     feats = [t for t in operands if t.dtype == torch.float32

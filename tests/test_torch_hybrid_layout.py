@@ -187,3 +187,58 @@ def test_layers_straddling_the_gather_width_limit(monkeypatch):
         rows = dst if j.res_gather is None else np.asarray(j.res_gather)[dst]
         assert np.array_equal(ht_in.res_src.numpy(), rows)
     assert ht_hid.res_mask_s is ht_in.res_mask_s
+
+
+@pytest.mark.parametrize("tiers", ["hot", "both"])
+@pytest.mark.parametrize("graph", ["small_graph", "skewed_graph"])
+def test_hot_list_holds_exactly_the_slabs_edges(graph, tiers, request):
+    """``hot_ptr``/``hot_src`` hold every set bit of the hot slab, row by
+    row in ascending column j, each as ``hot_ids[j]``; the tensors built
+    transposed take the list (these slabs are sparse) and leave the slab
+    and the hot ids on the host."""
+    import torch
+
+    from gnnadvisor_osdi21_tpu_torch.ops import hybrid_agg, spmm_cuda
+
+    g = request.getfixturevalue(graph)
+    hg = th.build_hybrid(g, res_ob=64, res_tile=32, **TIERS[tiers])
+    ptr, src = hybrid_agg.hot_list(hg.hot_bits, hg.hot_ids)
+    dense = spmm_cuda.unpack_bits(torch.from_numpy(hg.hot_bits)).numpy()
+    want_ptr = np.concatenate([[0], np.cumsum((dense > 0).sum(0))])
+    assert ptr.dtype == src.dtype == np.int32
+    assert np.array_equal(ptr, want_ptr) and ptr[-1] == hg.num_hot_edges
+    for r in range(hg.num_rows):
+        js = np.flatnonzero(dense[:, r])  # ascending column
+        assert np.array_equal(src[ptr[r]:ptr[r + 1]], hg.hot_ids[js]), r
+    assert hybrid_agg.hot_list_wins(hg)
+    ht = hybrid_agg.build_hybrid_tensors(hg, device="cpu")
+    assert ht.hot_bits is None and ht.hot_ids is None
+    assert np.array_equal(ht.hot_ptr.numpy(), ptr)
+    assert np.array_equal(ht.hot_src.numpy(), src)
+    rm = hybrid_agg.build_hybrid_tensors(hg, device="cpu", transposed=False)
+    assert rm.hot_src is None and rm.hot_bits is not None
+
+
+@pytest.mark.parametrize("case", [
+    # amazon0505's hot tier: 3,137,164 edges over 410,624 rows, K = 4096
+    ("amazon0505", 4096, 410_624, 3_137_164, True),
+    # the same rows at K = 64: 8 slab bytes a row against 4·(7.64 + 1)
+    ("narrow slab", 64, 410_624, 3_137_164, False),
+    # a dense hot tier: 300 edges a row of a K = 4096 slab
+    ("dense rows", 4096, 1024, 300 * 1024, False),
+    # 4·(nnz + R + 1) against 2·W16·R at the boundary
+    ("one byte short", 64, 1024, 1023, False),
+    ("one entry fewer", 64, 1024, 1022, True),
+    ("no hot tier", 0, 1024, 0, False),
+])
+def test_the_byte_rule_takes_the_smaller_form(case):
+    """The hot tier goes to the device as lists when 4 bytes an entry and
+    4 a row are fewer than the slab's 2·K/16 a row, else as its slab."""
+    import types
+
+    from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import hot_list_wins
+
+    _, k, r, nnz, wins = case
+    bits = np.broadcast_to(np.uint16(0), (k // 16, r))  # only its shape
+    hg = types.SimpleNamespace(hot_k=k, hot_bits=bits, num_hot_edges=nnz)
+    assert hot_list_wins(hg) is wins

@@ -216,6 +216,11 @@ def test_cuda_tensors_never_reach_the_plain_version(kernel, monkeypatch):
         got = spmm_cuda.residual_combine_t(
             _cuda_view(torch.zeros((8, 100))), src, mask, t2b, ptr, 512, 256,
             addend=_cuda_typed(torch.zeros((8, 512))))
+    elif kernel == "hot_list_t":
+        src = _cuda_typed(torch.tensor([3, 99], dtype=torch.int32))
+        got = spmm_cuda.hot_list_t(
+            _cuda_view(torch.zeros((8, 100))), ptr, src,
+            addend=_cuda_typed(torch.zeros((8, 2))))
     elif kernel == "slab_matmul":
         got = spmm_cuda.slab_matmul(bits, _cuda_typed(torch.zeros((64, 8))))
     elif kernel == "fused_slab_matmul":

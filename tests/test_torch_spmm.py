@@ -1,6 +1,7 @@
-"""The port's three transposed kernels (their plain versions, reached
-through the wrappers on CPU tensors) against the JAX package's Pallas
-kernels in interpret mode, on the same numpy inputs.
+"""The port's transposed kernels (their plain versions, reached through
+the wrappers on CPU tensors) against the JAX package's Pallas kernels in
+interpret mode, on the same numpy inputs; the hot list (``hot_list_t``,
+no TPU twin) against the hot slab it is composed from.
 
 Tolerance rtol 1e-5 / atol 1e-5: both sides add exact f32 products of 0/1
 bits and f32 (or bf16-valued) features in f32; only the order of the sums
@@ -14,6 +15,7 @@ import torch
 from gnnadvisor_osdi21_tpu.graphs.hybrid import build_residual_stream
 from gnnadvisor_osdi21_tpu.ops import spmm_pallas
 from gnnadvisor_osdi21_tpu_torch.ops import spmm_cuda
+from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import hot_list
 
 DIMS = (5, 16, 22)
 DTYPES = ("float32", "bfloat16")
@@ -252,3 +254,99 @@ def test_wrapper_rejects_bad_operands(bad):
         x = _view(torch.zeros((8, 64), device="meta"))
     with pytest.raises(ValueError):
         spmm_cuda.slab_matmul_t(bits, x)
+
+
+HOT_DIMS = (5, 16, 22, 64, 96)
+
+
+def _hot_case(d, dtype, seed):
+    """A hot slab [K/16, R] with empty rows and one row holding every
+    column, hot ids with pad columns (no bits) naming a zero pad row of a
+    table of X > K rows, and features x_t [d, X].  Returns the JAX
+    kernel's result on the slab against ``x_t[:, hot_ids]``, the port's
+    x_t (a table view), hot_ptr and hot_src."""
+    rng = np.random.default_rng(seed)
+    r, k, x_rows, live = 256, 64, 100, 48  # columns live..k-1 are pads
+    rows = rng.integers(0, r, 700)
+    rows = rows[rows % 5 != 0]  # every fifth row empty
+    cols = rng.integers(0, live, len(rows))
+    rows = np.concatenate([rows, np.full(live, 7)])  # row 7: every column
+    cols = np.concatenate([cols, np.arange(live)])
+    bits = spmm_pallas.pack_slab_bits_t(rows, cols, r, k)
+    hot_ids = np.full(k, x_rows - 1, dtype=np.int32)
+    hot_ids[:live] = rng.permutation(x_rows - 1)[:live]
+    table = rng.standard_normal((d, x_rows)).astype(np.float32)
+    table[:, x_rows - 1] = 0.0  # the pad row
+    xj, xt = _both(np.ascontiguousarray(table[:, hot_ids]), dtype)
+    _, tt = _both(table, dtype)
+    want = np.asarray(spmm_pallas.slab_matmul_t(
+        jnp.asarray(bits), xj, block_cols=64, interpret=True))
+    ptr, src = hot_list(bits, hot_ids)
+    return want, _view(tt), torch.from_numpy(ptr), torch.from_numpy(src)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", HOT_DIMS)
+def test_hot_list_t_matches_the_hot_slab(d, dtype):
+    """The hot list composed from a slab and its hot ids, walked over x in
+    place, gives the JAX slab kernel's hot wiring on the gathered table:
+    empty rows 0, the full row every live column, no pad id read."""
+    want, x_t, ptr, src = _hot_case(d, dtype, 50 + d)
+    assert not (src == x_t.shape[1] - 1).any()  # pads have no entries
+    assert int(ptr[8] - ptr[7]) == 48 and int(ptr[1] - ptr[0]) == 0
+    got = spmm_cuda.hot_list_t(x_t, ptr, src)
+    assert got.dtype == torch.float32 and got.shape == (d, 256)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert not got[:, ::5].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", HOT_DIMS)
+def test_hot_list_t_addend(d, dtype):
+    """With an addend the result is ``addend + sum`` bit for bit, and the
+    plain version adds in entry order from zero: the same bits as an
+    explicit walk of the entries."""
+    want, x_t, ptr, src = _hot_case(d, dtype, 60 + d)
+    addend = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (d, 256)).astype(np.float32))
+    r = spmm_cuda.hot_list_t(x_t, ptr, src)
+    got = spmm_cuda.hot_list_t(x_t, ptr, src, addend=addend)
+    assert torch.equal(got, addend + r)
+    np.testing.assert_allclose(got.numpy(), addend.numpy() + want, **TOL)
+    x = x_t.float()
+    walk = torch.zeros((d, 256))
+    for row in range(256):
+        for k in range(int(ptr[row]), int(ptr[row + 1])):
+            walk[:, row] += x[:, int(src[k])]
+    assert torch.equal(r, walk)
+
+
+@pytest.mark.parametrize("bad", ["id", "negative id", "dtype", "ids dtype",
+                                 "shape", "pointers", "addend", "not a view"])
+def test_hot_list_t_rejects_bad_operands(bad):
+    """A bad id (on the card: a device-side assert), a feature or id dtype
+    the kernel does not take, a list whose pointers do not match it, a
+    wrong addend, and an x_t that is not the view of a row-major table
+    are refused."""
+    _, x_t, ptr, src = _hot_case(8, "float32", 70)
+    addend = None
+    if bad == "id":
+        src = src.clone()
+        src[3] = x_t.shape[1]
+    elif bad == "negative id":
+        src = src.clone()
+        src[-1] = -1
+    elif bad == "dtype":
+        x_t = _view(torch.zeros((8, 100), dtype=torch.float16))
+    elif bad == "ids dtype":
+        src = src.to(torch.int64)
+    elif bad == "shape":
+        ptr = ptr[None, :]
+    elif bad == "pointers":
+        src = src[:-1]
+    elif bad == "addend":
+        addend = torch.zeros((8, 255))
+    else:
+        x_t = x_t.contiguous()
+    with pytest.raises(ValueError):
+        spmm_cuda.hot_list_t(x_t, ptr, src, addend=addend)
