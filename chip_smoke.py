@@ -244,7 +244,7 @@ from gnnadvisor_osdi21_tpu_torch.train import (
     nll_loss, train_and_time, warm_up,
 )
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import (
-    build_hybrid_tensors, build_layer_tensors, hot_list, hybrid_aggregate,
+    build_hybrid_tensors, build_layer_tensors, hybrid_aggregate,
 )
 from gnnadvisor_osdi21_tpu_torch.parallel import dist_hybrid
 from gnnadvisor_osdi21_tpu_torch.parallel.dist_hybrid import local_tensors
@@ -2927,9 +2927,11 @@ def wide_kernels(g10, recs) -> None:
     tt = build_hybrid_tensors(hg, device=DEVICE, transposed=True)
     tr = build_hybrid_tensors(hg, device=DEVICE, transposed=False)
     # the hot tier in both forms, whichever the transposed tensors took
+    require(hg.hot_src is not None, "the 10k (512, 512) layout holds its "
+            "hot tier's lists")
     hot_bits = torch.from_numpy(hg.hot_bits).to(DEVICE)
     hot_ptr, hot_src = (torch.from_numpy(a).to(DEVICE)
-                        for a in hot_list(hg.hot_bits, hg.hot_ids))
+                        for a in (hg.hot_ptr, hg.hot_src))
     r, b = hg.num_rows, hg.diag_b
     res_t = (tt.res_src, tt.res_mask_s, tt.res_t2b, tt.res_block_ptr, r,
              hg.res_ob)

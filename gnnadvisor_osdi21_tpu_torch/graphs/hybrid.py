@@ -12,7 +12,8 @@ so both packages read the same bytes:
    against the block's own contiguous feature slice.
 2. **Hot tier**: the top-K in-degree destinations among off-block edges,
    as a global bit slab ``hot_bits`` ([K/16, R]) against the gathered
-   ``x[hot_ids]`` table.
+   ``x[hot_ids]`` table; where they take fewer bytes, also as per-row
+   lists (``hot_ptr``, ``hot_src``) for the transposed kernels.
 3. **Residual tier**: one gather slot per unique (``res_ob``-row output
    block, destination) pair and a multi-hot mask that fans the gathered
    row out to every block row that wants it.
@@ -168,6 +169,11 @@ class HybridGraph:
     # on the layout it returns; not a field, so that the fields stay the
     # JAX package's
     tier_probe = "not run"
+    # the hot tier as per-row lists (``pack_hot_list``), where they take
+    # fewer bytes than its slab (``hot_list_wins``); None otherwise.  Set
+    # by build_hybrid; not fields, as tier_probe
+    hot_ptr = None  # [R+1] int32 list offsets
+    hot_src = None  # [nnz] int32 entry -> x row
 
     def pad_array(self, a: np.ndarray) -> np.ndarray:
         """Node-indexed array -> kernel row space (zero-pad the tail)."""
@@ -707,11 +713,17 @@ def build_hybrid(
         hot_ids = np.zeros(0, dtype=np.int32)
 
     # --- bit slabs (stored transposed: [words, rows], uint16) -------------
+    num_hot_edges = int(in_hot.sum())
+    hot_ptr = hot_src = None
     with profiling.span("layout.pack_slabs"):
         if hot_k:
-            hot_bits = pack_slab_bits_t(
-                src[in_hot], hot_col[ci[in_hot]], num_rows, hot_k
-            )
+            hrow, hcol = src[in_hot], hot_col[ci[in_hot]]
+            hot_bits = pack_slab_bits_t(hrow, hcol, num_rows, hot_k)
+            if hot_list_wins(hot_k, num_rows, num_hot_edges):
+                hot_ptr, hot_src = pack_hot_list(
+                    hrow, hcol, num_rows, hot_k, hot_ids)
+                profiling.count("hot_list.builds")
+                profiling.count("hot_list.entries", len(hot_src))
         else:
             hot_bits = np.zeros((0, num_rows), dtype=np.uint16)
         if diag_b:
@@ -761,7 +773,7 @@ def build_hybrid(
         res_t2b=res_t2b,
         res_tile=res_tile,
         res_ob=res_ob,
-        num_hot_edges=int(in_hot.sum()),
+        num_hot_edges=num_hot_edges,
         num_diag_edges=int(in_diag.sum()),
         num_res_edges=int(in_res.sum()),
         num_res_pairs=num_res_pairs,
@@ -771,6 +783,7 @@ def build_hybrid(
         ),
         res_single=res_single,
     )
+    hg.hot_ptr, hg.hot_src = hot_ptr, hot_src
     if probe is not False and (in_diag_b is None or in_hot_k is None):
         with profiling.span("layout.probe") as rec:
             hg = _maybe_probe_tiers(
@@ -795,7 +808,7 @@ PROBE_BUILD_ROW_CAP = 3_000_000  # default-auto never probes above this
 PROBE_ITERS = 100
 PROBE_MARGIN = 0.05  # a challenger must beat the model pick by >5%
 # bump when the probe protocol/constants change, or what it times (2: the
-# transposed hot tier walked as per-row lists, ops/hybrid_agg.hot_list)
+# transposed hot tier walked as per-row lists, pack_hot_list)
 PROBE_CACHE_VERSION = 2
 CACHE_DIR_ENV = "GNNADVISOR_TORCH_CACHE_DIR"  # overrides the cache directory
 _DEFAULT_CACHE_DIR = os.path.join(
@@ -1051,6 +1064,30 @@ def pack_slab_bits_t(rows: np.ndarray, cols: np.ndarray, num_rows: int, k: int):
         bits, (cols % w16, rows), np.uint16(1) << (cols // w16).astype(np.uint16)
     )
     return bits
+
+
+def hot_list_wins(hot_k: int, num_rows: int, num_hot_edges: int) -> bool:
+    """Whether the hot tier's per-row lists take fewer bytes than its slab:
+    4 an entry and 4 a row against the slab's 2·K/16 a row.  At amazon0505
+    (hot 4096, 7.6 edges a row) about 35 against 512."""
+    return bool(hot_k) and (
+        4 * (num_hot_edges + num_rows + 1) < 2 * (hot_k // 16) * num_rows)
+
+
+def pack_hot_list(rows: np.ndarray, cols: np.ndarray, num_rows: int,
+                  hot_k: int, hot_ids: np.ndarray):
+    """The hot tier's edges (row, slab column j) as per-row lists:
+    ``hot_ptr`` int32 [R+1] and ``hot_src`` int32 [nnz], each row's entries
+    in ascending j, each the row of x that column reads (``hot_ids[j]``).
+    A repeated edge is kept once, as the slab's OR keeps it.  One sort of
+    the keys row·K + j (``np.unique`` would take numpy's hash path)."""
+    key = np.sort(np.asarray(rows, np.int64) * hot_k + cols)
+    keep = np.ones(len(key), dtype=bool)
+    keep[1:] = key[1:] != key[:-1]
+    row, col = np.divmod(key[keep], hot_k)
+    hot_ptr = np.zeros(num_rows + 1, dtype=np.int32)
+    np.cumsum(np.bincount(row, minlength=num_rows), out=hot_ptr[1:])
+    return hot_ptr, hot_ids[col].astype(np.int32)
 
 
 def pack_slab_bits(rows: np.ndarray, cols: np.ndarray, num_rows: int, k: int):

@@ -7,9 +7,9 @@ The port of ``gnnadvisor_osdi21_tpu/ops/hybrid_agg.py``, per layout
 
 - diagonal tier: ``spmm_cuda.slab_matmul[_t]`` with the block-local wiring,
 - hot tier: ``spmm_cuda.slab_matmul[_t]`` against the gathered hot-node
-  table, or, transposed and where its per-row lists are smaller than its
-  slab (``hot_list_wins``), ``spmm_cuda.hot_list_t`` over those lists,
-  which reads x's rows in place and adds the diagonal tier's sum,
+  table, or, transposed where the layout holds its per-row lists
+  (``graphs.hybrid.hot_list_wins``), ``spmm_cuda.hot_list_t`` over those
+  lists, which reads x's rows in place and adds the diagonal tier's sum,
 - both slabs at once: ``spmm_cuda.fused_slab_matmul[_t]``,
 - residual tier: ``spmm_cuda.residual_combine[_t]`` alone, which gathers
   the slot rows from x by ``res_src`` itself (one or two XLA gathers
@@ -19,7 +19,9 @@ The transposed path first writes x, scaled and cast, into one row-major
 table (``spmm_cuda.row_table_t``) and hands every tier a view of it: the
 diagonal tier, the hot list and the residual gather read it in place, and
 the hot slab reads its rows gathered by ``hot_ids``, so no kernel call
-transposes x.
+transposes x.  The rank's aggregation (``parallel/dist_hybrid.py``) sums
+its tiers with the same three functions: ``diag_tier_t``, ``hot_tier_t``
+and ``residual_tier_t``.
 
 Every reduction is deterministic; there are no atomics.  All arrays live
 in the padded row space [num_rows]; the loss masks padding rows out.
@@ -51,11 +53,10 @@ class HybridTensors:
     ``res_src`` (``res_gather[res_dst]``, whatever the JAX gather's
     stages), which the residual kernels gather by themselves, in place of
     ``res_gather``/``res_dst``; the hot tier is either its slab
-    (``hot_bits`` with ``hot_ids``) or, transposed where the lists are
-    smaller (``hot_list_wins``), its per-row lists (``hot_ptr`` with
-    ``hot_src``, ``hot_list``), never both; and the TPU kernel geometry
-    (``block_rows``, ``feature_tile``) is gone: the kernels choose their
-    own geometry."""
+    (``hot_bits`` with ``hot_ids``) or, transposed where the layout holds
+    them, its per-row lists (``hot_ptr`` with ``hot_src``), never both;
+    and the TPU kernel geometry (``block_rows``, ``feature_tile``) is
+    gone: the kernels choose their own geometry."""
 
     degrees: torch.Tensor  # [R] f32
     row_mask: torch.Tensor  # [R] f32
@@ -86,64 +87,6 @@ class HybridTensors:
         return "hybrid"
 
 
-def hot_list_wins(hg: HybridGraph) -> bool:
-    """Whether the hot tier's per-row lists take fewer bytes than its slab:
-    4 an entry (the layout's hot edges) and 4 a row against the slab's
-    2·K/16 a row.  At amazon0505 (hot 4096, 7.6 edges a row) about 35
-    against 512."""
-    if not hg.hot_k:
-        return False
-    r = hg.hot_bits.shape[1]
-    return 4 * (hg.num_hot_edges + r + 1) < 2 * hg.hot_bits.shape[0] * r
-
-
-def _set_words(bits: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """The flat positions of a uint16 array's non-zero words, and the
-    words; scanned as uint64 (four words a test) where the size allows."""
-    flat = bits.reshape(-1)
-    if flat.size % 4 or not np.little_endian:
-        pos = np.flatnonzero(flat)
-        return pos, flat[pos]
-    quads = flat.view(np.uint64)
-    at = np.flatnonzero(quads != 0)
-    q = quads[at]
-    pos, words = [], []
-    for lane in range(4):  # word 4i + lane is bits 16·lane.. of quad i
-        w = (q >> np.uint64(16 * lane)).astype(np.uint16)
-        on = np.flatnonzero(w)
-        pos.append(at[on] * 4 + lane)
-        words.append(w[on])
-    return np.concatenate(pos), np.concatenate(words)
-
-
-# the index of the lowest set bit of every uint16 value (0 for 0)
-_LOW_BIT = np.zeros(1 << 16, dtype=np.int64)
-_LOW_BIT[1:] = np.log2(np.arange(1, 1 << 16) & -np.arange(1, 1 << 16))
-
-
-def hot_list(hot_bits: np.ndarray,
-             hot_ids: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """The hot slab's edges as per-row lists: ``hot_ptr`` int32 [R+1] and
-    ``hot_src`` int32 [nnz], each row's entries in ascending slab column
-    j, each the row of x that column reads (``hot_ids[j]``).  Column j is
-    word ``j % W16``, bit ``j // W16`` of the slab ``[W16, R]``."""
-    w16, r = hot_bits.shape
-    k = w16 * 16
-    pos, words = _set_words(hot_bits)
-    w, row = np.divmod(pos, r)
-    keys = []  # row·K + j, one for each set bit
-    while len(words):
-        keys.append(row * k + _LOW_BIT[words] * w16 + w)
-        words = words & (words - np.uint16(1))
-        live = np.flatnonzero(words)
-        words, row, w = words[live], row[live], w[live]
-    key = np.sort(np.concatenate(keys)) if keys else np.zeros(0, np.int64)
-    row, col = np.divmod(key, k)
-    hot_ptr = np.zeros(r + 1, dtype=np.int32)
-    np.cumsum(np.bincount(row, minlength=r), out=hot_ptr[1:])
-    return hot_ptr, hot_ids[col].astype(np.int32)
-
-
 def build_hybrid_tensors(
     hg: HybridGraph,
     device=None,
@@ -158,9 +101,8 @@ def build_hybrid_tensors(
     once, by ``res_src``, at any width: the JAX package's per-width choice
     between a one- and a two-stage gather (hybrid_agg.py:106-125 there)
     has no counterpart.  Transposed, the hot tier goes to the device as
-    per-row lists where they are smaller than its slab (``hot_list_wins``;
-    counters ``hot_list.builds``, ``hot_list.entries``), and its slab
-    stays on the host."""
+    the layout's per-row lists where it holds them (``hg.hot_src``), and
+    its slab stays on the host."""
     if agg_dtype not in AGG_DTYPES:
         raise ValueError(f"agg_dtype must be one of {sorted(AGG_DTYPES)}")
     dev = resolve_device(device)
@@ -183,12 +125,7 @@ def build_hybrid_tensors(
         if not (res_src.min() >= 0 and res_src.max() < hg.num_rows):
             raise ValueError("residual slot ids fall outside the layout's "
                              f"{hg.num_rows} rows")
-    hot_ptr = hot_src = None
-    as_list = transposed and hot_list_wins(hg)
-    if as_list:
-        hot_ptr, hot_src = hot_list(hg.hot_bits, hg.hot_ids)
-        profiling.count("hot_list.builds")
-        profiling.count("hot_list.entries", len(hot_src))
+    as_list = transposed and hg.hot_src is not None
     as_slab = bool(hg.hot_k) and not as_list
     return HybridTensors(
         degrees=put(hg.degrees),
@@ -203,8 +140,8 @@ def build_hybrid_tensors(
         res_t2b=put(hg.res_t2b) if has_res else None,
         res_block_ptr=put(block_ptr) if has_res else None,
         res_src=None if res_src is None else put(res_src),
-        hot_ptr=put(hot_ptr) if as_list else None,
-        hot_src=put(hot_src) if as_list else None,
+        hot_ptr=put(hg.hot_ptr) if as_list else None,
+        hot_src=put(hg.hot_src) if as_list else None,
         num_rows=hg.num_rows,
         real_nodes=hg.real_nodes,
         diag_b=hg.diag_b,
@@ -236,34 +173,46 @@ def build_layer_tensors(
     return ht, ht
 
 
+def diag_tier_t(table: torch.Tensor, d: int,
+                ht: HybridTensors) -> torch.Tensor | None:
+    """The diagonal tier ([D, num_rows] f32, no degree scaling) over the
+    first ``num_rows`` rows of x's row-major table [rows, Dp]
+    (``spmm_cuda.row_table_t``), read in place; None without one."""
+    if not ht.diag_b:
+        return None
+    return spmm_cuda.slab_matmul_t(
+        ht.diag_bits, table.t()[:d, : ht.num_rows], table_block_cols=ht.diag_b
+    )
+
+
+def hot_tier_t(table: torch.Tensor, d: int, ht: HybridTensors,
+               addend: torch.Tensor | None) -> torch.Tensor | None:
+    """The hot tier over the whole table plus ``addend`` unless it is None
+    (``addend`` alone without a hot tier): its per-row lists walked over
+    ``table.t()[:d]`` in place where the tensors hold them, else its slab
+    times the table's ``hot_ids`` rows."""
+    if ht.hot_src is not None:
+        return spmm_cuda.hot_list_t(table.t()[:d], ht.hot_ptr, ht.hot_src,
+                                    addend=addend)
+    if not ht.hot_k:
+        return addend
+    h = spmm_cuda.slab_matmul_t(
+        ht.hot_bits, table.index_select(0, ht.hot_ids).t()[:d])
+    return h if addend is None else addend + h
+
+
 def slab_tiers_t(table: torch.Tensor, d: int,
                  ht: HybridTensors) -> torch.Tensor | None:
     """The diagonal and hot tiers' sum ([D, R] f32, no degree scaling;
-    None when the layout has neither) over x given as its row-major table
-    [R, Dp] (``spmm_cuda.row_table_t``): every tier reads
-    ``table.t()[:d]``, x_t itself, in place.  A hot tier in lists adds the
-    diagonal slab's sum as its addend; both slabs run as one fused launch
-    where both exist."""
-    x_t = table.t()[:d]
-    if ht.hot_src is not None:
-        diag = spmm_cuda.slab_matmul_t(
-            ht.diag_bits, x_t, table_block_cols=ht.diag_b
-        ) if ht.diag_b else None
-        return spmm_cuda.hot_list_t(x_t, ht.hot_ptr, ht.hot_src, addend=diag)
-    x_hot_t = table.index_select(0, ht.hot_ids).t()[:d] if ht.hot_k else None
-    if ht.diag_b and ht.hot_k:
+    None when the layout has neither) over x's row-major table: both
+    slabs as one fused launch where both exist, else the hot tier with
+    the diagonal tier's sum as its addend."""
+    if ht.diag_b and ht.hot_bits is not None:
         return spmm_cuda.fused_slab_matmul_t(
-            ht.diag_bits, ht.hot_bits, x_t, x_hot_t, ht.diag_b
+            ht.diag_bits, ht.hot_bits, table.t()[:d],
+            table.index_select(0, ht.hot_ids).t()[:d], ht.diag_b
         )
-    out = None
-    if ht.diag_b:
-        out = spmm_cuda.slab_matmul_t(
-            ht.diag_bits, x_t, table_block_cols=ht.diag_b
-        )
-    if ht.hot_k:
-        h = spmm_cuda.slab_matmul_t(ht.hot_bits, x_hot_t)
-        out = h if out is None else out + h
-    return out
+    return hot_tier_t(table, d, ht, addend=diag_tier_t(table, d, ht))
 
 
 def _tiers_transposed(table: torch.Tensor, d: int,

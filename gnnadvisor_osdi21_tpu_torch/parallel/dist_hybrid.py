@@ -9,11 +9,13 @@ end to end, on the single card's kernels:
    table ``[block + recv_max, ld]`` in one pass (``spmm_cuda.row_table_t``);
    the cast comes first, so a bf16 exchange ships half the bytes,
 2. one exchange fills the table's halo rows (``dist_ops.halo_exchange``),
-3. the **diagonal tier** (``slab_matmul_t``) reads only the rank's own
-   rows, so with ``overlap`` it runs while the exchange is in flight,
-4. after the wait, the **hot tier** (``slab_matmul_t`` over the table's
-   ``hot_ids`` rows) and the **residual tier** (``residual_combine_t``
-   over the whole table, the slab tiers' sum as its addend).
+3. the **diagonal tier** (``hybrid_agg.diag_tier_t``) reads only the
+   rank's own rows, so with ``overlap`` it runs while the exchange is in
+   flight,
+4. after the wait, the **hot tier** (``hybrid_agg.hot_tier_t``: the slab
+   over the table's ``hot_ids`` rows) and the **residual tier**
+   (``hybrid_agg.residual_tier_t`` over the whole table, the slab tiers'
+   sum as its addend): the single card's tier functions.
 
 The JAX dist path keeps the diagonal tier apart, for the overlap, so the
 fused slab kernel is not on this path.  GCN's weighting is the pre- and
@@ -30,7 +32,7 @@ import torch
 
 from gnnadvisor_osdi21_tpu_torch.ops import spmm_cuda
 from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import (
-    AGG_DTYPES, HybridTensors, residual_tier_t,
+    AGG_DTYPES, HybridTensors, diag_tier_t, hot_tier_t, residual_tier_t,
 )
 from gnnadvisor_osdi21_tpu_torch.parallel.dist_ops import (
     HaloPlan, aggregate_with_adjoint, halo_exchange, halo_plan,
@@ -86,34 +88,13 @@ def local_tensors(sg: HybridShardedGraph, rank: int, device,
     )
 
 
-def diag_tier_t(table: torch.Tensor, d: int, ht: HybridTensors):
-    """The diagonal tier over the table's first ``num_rows`` rows (the
-    rank's own), or None without one."""
-    if not ht.diag_b:
-        return None
-    return spmm_cuda.slab_matmul_t(
-        ht.diag_bits, table.t()[:d, : ht.num_rows], table_block_cols=ht.diag_b
-    )
-
-
-def table_tiers_t(table: torch.Tensor, d: int, ht: HybridTensors,
-                  out: torch.Tensor | None) -> torch.Tensor:
-    """The hot and residual tiers over the whole table (the halo rows
-    landed), added to ``out`` (the diagonal tier's, or None): [D,
-    num_rows] f32."""
-    if ht.hot_k:
-        h = spmm_cuda.slab_matmul_t(
-            ht.hot_bits, table.index_select(0, ht.hot_ids).t()[:d])
-        out = h if out is None else out + h
-    return residual_tier_t(table.t()[:d], ht, addend=out)
-
-
 def shard_tiers_t(table: torch.Tensor, d: int,
                   ht: HybridTensors) -> torch.Tensor:
     """The three tiers over a table whose halo rows are already in place
     (no exchange): what each rank computes, for checks that build its
     table themselves."""
-    return table_tiers_t(table, d, ht, diag_tier_t(table, d, ht))
+    out = hot_tier_t(table, d, ht, addend=diag_tier_t(table, d, ht))
+    return residual_tier_t(table.t()[:d], ht, addend=out)
 
 
 def _dist_tiers_t(x_t: torch.Tensor, ht: HybridTensors, plan: HaloPlan,
@@ -127,7 +108,8 @@ def _dist_tiers_t(x_t: torch.Tensor, ht: HybridTensors, plan: HaloPlan,
     work.wait()
     if not overlap:
         out = diag_tier_t(table, d, ht)
-    out = table_tiers_t(table, d, ht, out)
+    out = hot_tier_t(table, d, ht, addend=out)
+    out = residual_tier_t(table.t()[:d], ht, addend=out)
     if norm:
         out = out * ht.degrees[None, :]
     return out.to(x_t.dtype)

@@ -300,10 +300,3 @@ class InputProperty:
                 transposed=self.transposed is not False,
                 gemm_dtype=self.gemm_dtype,
             )
-
-    def agg_dims(self) -> tuple[int, int]:
-        """The widths the input and hidden layers aggregate at
-        (tuner/decider.py:355-361 in the JAX package)."""
-        if self.model == "gin":
-            return self.input_dim, self.hidden_dim
-        return self.hidden_dim, self.graph.num_classes

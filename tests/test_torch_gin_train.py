@@ -153,8 +153,6 @@ def test_decider_gathers_per_layer_like_jax(model, monkeypatch):
     limit = hg.num_res_slots * 10
     monkeypatch.setattr(jax_hybrid, "RES_SINGLE_MAX_CELLS", limit)
     tp = InputProperty(g, **kw).decider()
-    assert tp.agg_dims() == ((IN, HIDDEN) if model == "gin"
-                             else (HIDDEN, CLASSES))
     ht_in, ht_hid = tp.build_tensors(device="cpu")
     jin, jhid = JaxProperty(g, probe=False, **kw).decider().build_tensors()
     for t, j in ((ht_in, jin), (ht_hid, jhid)):

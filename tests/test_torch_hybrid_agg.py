@@ -138,10 +138,10 @@ def test_hot_list_layouts_match_jax(graphs, layout, agg_dtype):
 
 
 def test_the_hot_list_counters_count(graphs):
-    """``hot_list.builds`` and ``hot_list.entries`` count each tensor
+    """``hot_list.builds`` and ``hot_list.entries`` count each layout
     build that takes the list, and ``launches["hot_list_t"]`` each launch
     of its kernel (a CPU call runs the plain version and counts none);
-    the slab's builds and the row-major ones count nothing."""
+    tensor builds and the slab's layouts count nothing."""
     counters = profiling.STORE.counters
     before = {k: counters.get(k, 0) for k in ("hot_list.builds",
                                               "hot_list.entries")}
@@ -149,7 +149,9 @@ def test_the_hot_list_counters_count(graphs):
     hg = build_hybrid(graph, **LIST_LAYOUTS["hot_only"])
     build_hybrid_tensors(hg, device="cpu")
     build_hybrid_tensors(hg, device="cpu", transposed=False)
-    build_hybrid_tensors(build_hybrid(graph, **LAYOUTS[4][2]), device="cpu")
+    slab = build_hybrid(graph, **LAYOUTS[4][2])
+    assert slab.hot_k and slab.hot_src is None
+    build_hybrid_tensors(slab, device="cpu")
     assert counters["hot_list.builds"] - before["hot_list.builds"] == 1
     assert (counters["hot_list.entries"] - before["hot_list.entries"]
             == hg.num_hot_edges)

@@ -192,17 +192,17 @@ def test_layers_straddling_the_gather_width_limit(monkeypatch):
 @pytest.mark.parametrize("tiers", ["hot", "both"])
 @pytest.mark.parametrize("graph", ["small_graph", "skewed_graph"])
 def test_hot_list_holds_exactly_the_slabs_edges(graph, tiers, request):
-    """``hot_ptr``/``hot_src`` hold every set bit of the hot slab, row by
-    row in ascending column j, each as ``hot_ids[j]``; the tensors built
-    transposed take the list (these slabs are sparse) and leave the slab
-    and the hot ids on the host."""
+    """The layout's ``hot_ptr``/``hot_src`` hold every set bit of the hot
+    slab, row by row in ascending column j, each as ``hot_ids[j]``; the
+    tensors built transposed take the list (these slabs are sparse) and
+    leave the slab and the hot ids on the host."""
     import torch
 
     from gnnadvisor_osdi21_tpu_torch.ops import hybrid_agg, spmm_cuda
 
     g = request.getfixturevalue(graph)
     hg = th.build_hybrid(g, res_ob=64, res_tile=32, **TIERS[tiers])
-    ptr, src = hybrid_agg.hot_list(hg.hot_bits, hg.hot_ids)
+    ptr, src = hg.hot_ptr, hg.hot_src
     dense = spmm_cuda.unpack_bits(torch.from_numpy(hg.hot_bits)).numpy()
     want_ptr = np.concatenate([[0], np.cumsum((dense > 0).sum(0))])
     assert ptr.dtype == src.dtype == np.int32
@@ -210,7 +210,7 @@ def test_hot_list_holds_exactly_the_slabs_edges(graph, tiers, request):
     for r in range(hg.num_rows):
         js = np.flatnonzero(dense[:, r])  # ascending column
         assert np.array_equal(src[ptr[r]:ptr[r + 1]], hg.hot_ids[js]), r
-    assert hybrid_agg.hot_list_wins(hg)
+    assert th.hot_list_wins(hg.hot_k, hg.num_rows, hg.num_hot_edges)
     ht = hybrid_agg.build_hybrid_tensors(hg, device="cpu")
     assert ht.hot_bits is None and ht.hot_ids is None
     assert np.array_equal(ht.hot_ptr.numpy(), ptr)
@@ -234,11 +234,5 @@ def test_hot_list_holds_exactly_the_slabs_edges(graph, tiers, request):
 def test_the_byte_rule_takes_the_smaller_form(case):
     """The hot tier goes to the device as lists when 4 bytes an entry and
     4 a row are fewer than the slab's 2·K/16 a row, else as its slab."""
-    import types
-
-    from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import hot_list_wins
-
     _, k, r, nnz, wins = case
-    bits = np.broadcast_to(np.uint16(0), (k // 16, r))  # only its shape
-    hg = types.SimpleNamespace(hot_k=k, hot_bits=bits, num_hot_edges=nnz)
-    assert hot_list_wins(hg) is wins
+    assert th.hot_list_wins(k, r, nnz) is wins

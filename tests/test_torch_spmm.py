@@ -15,7 +15,7 @@ import torch
 from gnnadvisor_osdi21_tpu.graphs.hybrid import build_residual_stream
 from gnnadvisor_osdi21_tpu.ops import spmm_pallas
 from gnnadvisor_osdi21_tpu_torch.ops import spmm_cuda
-from gnnadvisor_osdi21_tpu_torch.ops.hybrid_agg import hot_list
+from gnnadvisor_osdi21_tpu_torch.graphs.hybrid import pack_hot_list
 
 DIMS = (5, 16, 22)
 DTYPES = ("float32", "bfloat16")
@@ -281,7 +281,7 @@ def _hot_case(d, dtype, seed):
     _, tt = _both(table, dtype)
     want = np.asarray(spmm_pallas.slab_matmul_t(
         jnp.asarray(bits), xj, block_cols=64, interpret=True))
-    ptr, src = hot_list(bits, hot_ids)
+    ptr, src = pack_hot_list(rows, cols, r, k, hot_ids)
     return want, _view(tt), torch.from_numpy(ptr), torch.from_numpy(src)
 
 
